@@ -1,9 +1,9 @@
-"""Multi-device scaling-efficiency harness (BASELINE.md metric 2).
+"""Multi-device scaling-efficiency harness.
 
 Renders the RTIOW final scene tile-sharded over 1..N devices and
-reports throughput + parallel efficiency.  On a pod this measures real
-ICI scaling; under `--xla_force_host_platform_device_count=N` it
-validates the sharding logic (CPU times are not meaningful).
+reports throughput + parallel efficiency.  On a multi-GPU host this
+measures real scaling; under `--xla_force_host_platform_device_count=N`
+it validates the sharding logic (CPU times are not meaningful).
 
     python bench_scaling.py [width height spp depth]
 """
@@ -54,8 +54,8 @@ def main():
         rays = width * height * spp / best
         if base is None:
             base = rays
-        # On a real pod, efficiency = rays/(base*n) (the >=85% BASELINE
-        # target).  On a virtual CPU host mesh all N "devices" share
+        # On real devices, efficiency = rays/(base*n).  On a virtual
+        # CPU host mesh all N "devices" share
         # one socket, so ideal is FLAT throughput and the meaningful
         # number is retention = rays/base (sharding overhead only).
         eff = rays / (base * n)
@@ -74,11 +74,9 @@ def main():
         "workload": {"width": width, "height": height, "spp": spp,
                      "depth": depth},
         "note": ("virtual host mesh: N devices share one socket; "
-                 "ideal is flat throughput (retention ~1), the "
-                 ">=85% rays/(base*N) target needs a real pod"
+                 "ideal is flat throughput (retention ~1)"
                  if host_mesh else
-                 "real accelerator mesh: efficiency vs the >=85% "
-                 "BASELINE target"),
+                 "real accelerator mesh: efficiency = rays/(base*N)"),
         "devices": results}))
 
 

@@ -13,10 +13,9 @@
 //
 // split_mode 1 = binned SAH (bvh.py::_sah_partition semantics, double
 // math in the same operation order; mrt/geometry tests assert
-// bit-equality against the Python spec).  Lucy's irregular statue
-// field measured +9% with bit-identical means under SAH trees
-// (artifacts/bvh_sah_r04.json) — the per-scene default rule lives in
-// mrt/geometry/bvh.py.
+// bit-equality against the Python spec).  SAH trees cut node visits on
+// irregular geometry such as lucy's statue field, with bit-identical
+// means; the per-scene default rule lives in mrt/geometry/bvh.py.
 //
 // Build: g++ -O3 -shared -fPIC -o libmrt_native.so bvh_builder.cpp
 

@@ -15,7 +15,7 @@ from .runtime.driver import run
 
 def build_parser():
     p = argparse.ArgumentParser(
-        prog="mrt", description="TPU-native differentiable path tracer")
+        prog="mrt", description="differentiable wavefront path tracer")
     p.add_argument("--scene", default="rtiow", choices=scenes.names())
     p.add_argument("--width", type=int, default=1920)
     p.add_argument("--height", type=int, default=1080)
@@ -47,8 +47,8 @@ def build_parser():
                    help="next-event estimation (direct light sampling)")
     p.add_argument("--sort-rays", dest="sort_rays", default=None,
                    action="store_true",
-                   help="force lane coherence sorting (default: auto — "
-                        "on for scenes whose TLAS streams from HBM)")
+                   help="sort lanes by ray coherence every step "
+                        "(default off)")
     p.add_argument("--no-sort-rays", dest="sort_rays",
                    action="store_false")
     p.add_argument("--batched", dest="persistent", action="store_false",

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..math import vec, sampling
 

@@ -3,18 +3,18 @@
 The reference builds a binary BVH by sorting objects on a *random* axis
 and splitting at the median, recursing to 1-2 object leaves
 (reference: src/geom.rs:109-162), and traverses it recursively with
-t_max shrinking (geom.rs:185-200).  Recursion and pointer-chasing don't
-map to TPUs, so this module:
+t_max shrinking (geom.rs:185-200).  A wavefront has no per-ray call
+stack, so this module:
 
   * builds on host (numpy, iterative) with a *deterministic* widest-axis
-    median split (reproducible builds; SURVEY §7) and LEAF_SIZE=16,
+    median split (reproducible builds; SURVEY §7) and LEAF_SIZE leaves,
   * flattens depth-first with **escape indices**: node i's subtree is
     skipped by jumping to escape[i], so traversal is a single loop with
     no stack — each ray carries just its current node index,
   * traverses a whole wavefront per step in a `lax.while_loop`: gather
     node AABBs by per-ray index, slab-test, advance to i+1 (hit,
-    internal) or escape[i] (miss/leaf-done), and test the 4 triangles of
-    hit leaves inline (masked), shrinking per-ray best-t exactly like
+    internal) or escape[i] (miss/leaf-done), and test the LEAF_SIZE
+    triangles of hit leaves inline (masked), shrinking per-ray best-t exactly like
     the reference's closest_so_far.
 
 Triangles are reordered at build so leaf primitives are contiguous.
@@ -25,24 +25,18 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from .hit import INF
 from .triangles import Triangles, DET_EPS
 
-# Primitives per BVH leaf — the single source of truth (the packet
-# kernels and the XLA fallbacks import it).  Packet traversal pays per
-# SERIAL cursor step but tests leaf primitives across all vector lanes,
-# so fatter leaves trade cheap vector work for fewer expensive node
-# steps; MRT_LEAF_SIZE sweeps it (tools/probe_leaf.py).
+# Primitives per BVH leaf — the single source of truth (every traversal
+# imports it).  Fatter leaves trade masked per-primitive tests, unrolled
+# in the loop body, for fewer node steps.  32 was chosen for an earlier
+# accelerator and has not been re-derived on the GPU; MRT_LEAF_SIZE
+# sweeps it.  Film means are bit-identical across leaf sizes.
 import os as _os
 
-# Default 32: r5-late hardware sweep (artifacts/leaf32_r05.json) —
-# lucy +9.3% (462->505k rays/s), sphere_grid +9.2%, eve +2.7%,
-# cornell neutral, film means bit-identical on every scene.  The r3
-# sweep (4->16: lucy +67%) stopped at 16 over unrolled-code-size
-# worries; the measured compile cost is tolerable and steady-state
-# only wins.  MRT_LEAF_SIZE still sweeps it (tools/probe_leaf.py).
 LEAF_SIZE = int(_os.environ.get("MRT_LEAF_SIZE", "32"))
 
 
@@ -53,60 +47,10 @@ class FlatBVH:
     first: jnp.ndarray   # (M,) first triangle (leaves) / 0
     count: jnp.ndarray   # (M,) triangle count; 0 => internal node
     escape: jnp.ndarray  # (M,) node index to jump to when skipping
-    # Per-direction-octant threaded traversal orders (thread_octants):
-    # hitp[o, n] = next node after a hit at inner node n (its nearer
-    # child for octant o); missp[o, n] = next node after a miss / after
-    # a leaf's primitive tests.  Front-to-back descent lets the packet's
-    # shrinking best-t prune far subtrees (the n+1/escape build order
-    # can't).  None on BVHs built before threading existed.
-    hitp: jnp.ndarray = None    # (8, M) int32
-    missp: jnp.ndarray = None   # (8, M) int32
 
     @property
     def n_nodes(self):
         return self.bmin.shape[0]
-
-
-def thread_octants(count, escape, bmin, bmax):
-    """(hitp, missp) (8, M) int32 traversal orders, one per direction
-    octant (bit a of o set <=> d[a] < 0).
-
-    Children at inner node n are (n+1) and escape[n+1], ordered by
-    ascending centroid along the node's longest axis (the build's split
-    rule); the near child for an octant is the first one when the
-    direction is positive along that axis, else the second.  The DFS
-    sentinel after the root is M (matches the escape convention)."""
-    count = np.asarray(count)
-    escape = np.asarray(escape)
-    m = len(count)
-    ext = np.asarray(bmax, np.float64) - np.asarray(bmin, np.float64)
-    axis = np.argmax(ext, axis=1).astype(np.int32)
-    inner = count == 0
-    c1 = np.arange(m, dtype=np.int32) + 1
-    c2 = np.where(inner, escape[np.minimum(c1, m - 1)], 0).astype(
-        np.int32)
-
-    hitp = np.zeros((8, m), np.int32)
-    missp = np.zeros((8, m), np.int32)
-    for o in range(8):
-        neg = np.array([(o >> a) & 1 for a in range(3)], bool)
-        swap = neg[axis]                      # (M,)
-        first_c = np.where(swap, c2, c1)
-        second_c = np.where(swap, c1, c2)
-        # Iterative DFS threading: after(n) = next subtree in THIS
-        # octant's order.
-        stack = [(0, m)]
-        while stack:
-            n, after = stack.pop()
-            if inner[n]:
-                hitp[o, n] = first_c[n]
-                missp[o, n] = after
-                stack.append((int(first_c[n]), int(second_c[n])))
-                stack.append((int(second_c[n]), after))
-            else:
-                hitp[o, n] = after
-                missp[o, n] = after
-    return hitp, missp
 
 
 # Binned-SAH split (MRT_BVH=sah): bins per axis for the surface-area
@@ -175,8 +119,8 @@ def build(centroids, bounds_min, bounds_max, leaf_size=LEAF_SIZE,
       centroids: (T,3) primitive centroids.
       bounds_min/bounds_max: (T,3) primitive AABBs.
       split: "median" (default) or "sah" (binned SAH — fewer node
-        visits on irregularly-distributed geometry; lucy +9% with
-        bit-identical means, artifacts/bvh_sah_r04.json).  The env
+        visits on irregularly-distributed geometry, with bit-identical
+        means).  The env
         MRT_BVH overrides the caller's choice either way.
     Returns:
       (FlatBVH arrays as numpy, order) where `order` is the permutation
@@ -361,13 +305,12 @@ def intersect_bvh_tris(tris: Triangles, bvh: FlatBVH, o, d, t_min, t_max):
             q = jnp.cross(tv, ab)
             v = jnp.sum(d * q, axis=-1) * inv_det
             t = jnp.sum(ac * q, axis=-1) * inv_det
-            # Deterministic tie rule (VERDICT r2 #8): strictly closer
-            # wins; equal t -> lower primitive index wins.  Matches the
-            # reference's strict t_max shrink (geom.rs:188-195 passes
-            # closest_so_far as t_max and roots are rejected at
-            # t_max <= root, geom.rs:64-75), and makes the winner
-            # independent of traversal order, so ordered front-to-back
-            # kernels are bit-identical to this DFS fallback.
+            # Deterministic tie rule: strictly closer wins; equal t ->
+            # lower primitive index wins.  Matches the reference's
+            # strict t_max shrink (geom.rs:188-195 passes closest_so_far
+            # as t_max and roots are rejected at t_max <= root,
+            # geom.rs:64-75), and makes the winner independent of
+            # traversal order (the brute scans find the same one).
             ok = (valid
                   & det_ok
                   & (u >= 0.0) & (u <= 1.0)

@@ -8,7 +8,7 @@ materials are integer rows into the scene's MaterialTable.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 INF = float("inf")  # python float: no backend init at import time
 

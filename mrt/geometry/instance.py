@@ -7,7 +7,7 @@ ray into object space and the hit back out
 an identity-transform instance here (geom.rs:317-333 override semantics:
 the hit's material row is replaced).
 
-TPU design: all meshes' BVH node and triangle arrays are concatenated
+Design: all meshes' BVH node and triangle arrays are concatenated
 ("mega-BLAS"); a top-level BVH (TLAS) is built over instance world-space
 AABBs with 1 instance per leaf.  A wavefront of rays traverses both
 levels in a single `lax.while_loop`: each ray carries
@@ -31,12 +31,24 @@ from typing import Any
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from .hit import Hits, set_face_normal, INF
 from .triangles import Triangles, DET_EPS
 from . import bvh as bvh_mod
 from .bvh import FlatBVH, _slab_test, LEAF_SIZE
+
+# f32 geometry products must not drop to TF32 on a GPU: a ~1e-3
+# relative error in a ray warp or a normal moves or flips hits.
+HIGHEST = jax.lax.Precision.HIGHEST
+
+# Flat-table size cap: bytes of BVH nodes (48 B) plus triangles
+# (36 B) that a world-flattened build may duplicate into.
+FLAT_TABLE_BYTES = 448 * 1024
+
+
+def _flat_fits(n_nodes: int, n_tris: int) -> bool:
+    return n_nodes * 48 + n_tris * 36 < FLAT_TABLE_BYTES
 
 
 @struct.dataclass
@@ -70,18 +82,18 @@ class TLAS:
     # recompute can differ by ulps and flip a grazing cull).
     w_min: jnp.ndarray = None       # (I,3)
     w_max: jnp.ndarray = None       # (I,3)
-    # World-flattened single-level representation (geometry/tlas_flat):
-    # every instance's triangles pre-transformed to world space under
-    # one BVH, so small instanced scenes ride the single-level packet
-    # kernel instead of the two-level traversal.  Built only when the
+    # World-flattened single-level representation: every instance's
+    # triangles pre-transformed to world space under one BVH, so small
+    # instanced scenes can take the single-level traversal instead of
+    # the two-level one.  Built only when the
     # world triangle count is small (MeshRegistry.FLAT_MAX_TRIS); None
     # otherwise and on pre-existing pytrees.
     flat_tris: Any = None           # Triangles (unit_normal=True)
     flat_bvh: Any = None            # bvh.FlatBVH
     # Mid-size fallback: the same world flattening split into spatial
-    # instance clusters whose tables fit the packet kernel's SMEM
-    # budget individually; rays fold the per-part raw winners and one
-    # shared expansion recovers the exact instanced shading semantics.
+    # instance clusters, each under the flat size cap; rays fold the
+    # per-part raw winners and one shared expansion recovers the exact
+    # instanced shading semantics.
     flat_parts: Any = None          # tuple[FlatPart, ...]
 
     @property
@@ -215,9 +227,8 @@ class MeshRegistry:
             flat_tris, flat_bvh = self._build_flat(
                 mesh_ids, fwd, override, int(inst_tri_count.sum()))
         flat_parts = None
-        # Clustered flatten lost its hardware A/B (PARTS_AUTO_ON) —
-        # only build the part arrays when explicitly requested, so
-        # default builds don't carry dead device tables.
+        # The clustered flatten is opt-in: build the part arrays only
+        # when requested, so default builds carry no dead device tables.
         if flat_tris is None and (
                 split_env
                 or _os.environ.get("MRT_TLAS_KERNEL") in ("flat",
@@ -247,11 +258,10 @@ class MeshRegistry:
             w_max=jnp.asarray(w_max.astype(np.float32)))
 
 
-    # World-flattening ceiling, total triangles across all instances.
-    # Sized so the flat single-level tables can fit the packet kernel's
-    # SMEM budget (ops/budget.py: ~42 B/world-tri at leaf 16 keeps
-    # ~10.6k under 448 KB); the intersect-time gate re-checks exactly.
-    # Menger-class scenes (millions of world tris) skip the build.
+    # World-flattening ceiling, total triangles across all instances
+    # (each instance duplicates its mesh's triangles).  Menger-class
+    # scenes (millions of world tris) skip the build; `_flat_fits`
+    # then caps the built tables' size exactly.
     FLAT_MAX_TRIS = 12288
 
     def _build_flat(self, mesh_ids, fwd, override, world_tris):
@@ -304,16 +314,13 @@ class MeshRegistry:
             lambda *xs: np.concatenate(xs, axis=0).astype(xs[0].dtype),
             *chunks) if len(chunks) > 1 else chunks[0]
         flat_bvh, flat = bvh_mod.build_over_triangles(flat)
-        from ..ops import budget
-        if not budget.fits(budget.tri_tables_bytes(
-                flat_bvh.n_nodes, flat.va.shape[0])):
-            return None, None  # packet kernel couldn't host the tables
+        if not _flat_fits(flat_bvh.n_nodes, flat.va.shape[0]):
+            return None, None
         return (_jax.tree.map(jnp.asarray, flat),
                 _jax.tree.map(jnp.asarray, flat_bvh))
 
     # Clustered-flatten limits: total world tris worth duplicating,
-    # per-part ceiling sized to the SMEM table budget (9216*36 B tris
-    # + ~2*9216/16 nodes*48 B ≈ 387 KB < 448 KB), and the packed
+    # per-part ceiling under the flat size cap, and the packed
     # (instance << 20 | tri) i32 encoding bounds.
     FLAT_PARTS_MAX_TRIS = 1 << 17
     FLAT_PART_TRIS = 9216
@@ -338,7 +345,6 @@ class MeshRegistry:
             return None  # one instance alone overflows a part table
 
         import jax as _jax
-        from ..ops import budget
 
         cent = ((w_min + w_max) * 0.5).astype(np.float64)
         counts = np.asarray(tri_count, np.int64)
@@ -377,8 +383,7 @@ class MeshRegistry:
             bmax = np.maximum(np.maximum(va, vb), vc)
             (nb_min, nb_max, first, count, escape), order = bvh_mod.build(
                 (va + vb + vc) / 3.0, bmin, bmax, LEAF_SIZE)
-            if not budget.fits(budget.tri_tables_bytes(
-                    nb_min.shape[0], va.shape[0])):
+            if not _flat_fits(nb_min.shape[0], va.shape[0]):
                 return None
             t = va.shape[0]
             zeros3 = np.zeros((t, 3), np.float32)
@@ -401,60 +406,26 @@ class MeshRegistry:
         return tuple(parts)
 
 
-# Hardware verdict (tools/probe_tlas_flat.py, artifacts/
-# tlas_flat_r04.json, 480x270 spp8 d16 persistent, WARM protocol —
-# see BASELINE "Measurement protocol correction"): flat is
-# performance-NEUTRAL on the small TLAS scenes (cornell 1.04x,
-# playground 0.99x — the first-pass +17%/+12% was the cold-chip
-# bias) and LOSES where mid-path packets diverge across many
-# instances (eve -14%, clustered lucy -19%).  No measured win ->
-# opt-in only (`MRT_TLAS_KERNEL=flat`), per the repo rule.
-FLAT_AUTO_ON = False
-FLAT_MAX_INSTANCES = 32  # == Scene.SORT_MIN_INSTANCES
-
-
-def wants_flat(tlas: TLAS, auto=True) -> bool:
+def wants_flat(tlas: TLAS) -> bool:
     """Route this TLAS through its world-flattened single-level BVH?
-    Presence of `flat_tris` already implies the tables fit the packet
-    kernel's SMEM budget (built + gated in MeshRegistry._build_flat).
-    MRT_TLAS_KERNEL=flat forces it, =auto takes the build gate alone,
-    any other value disables; otherwise the measured instance-count
-    rule applies (when `auto`, i.e. on the TPU dispatch)."""
+    Opt-in: MRT_TLAS_KERNEL=flat or =auto, when the flat tables were
+    built (MeshRegistry._build_flat)."""
     import os
     if tlas is None or tlas.flat_tris is None:
         return False
-    kind = os.environ.get("MRT_TLAS_KERNEL", "")
-    if kind == "flat":
-        return True
-    if kind and kind != "auto":
-        return False
-    if kind == "auto":
-        return True
-    return (auto and FLAT_AUTO_ON
-            and tlas.transform.shape[0] < FLAT_MAX_INSTANCES)
+    return os.environ.get("MRT_TLAS_KERNEL", "") in ("flat", "auto")
 
 
-# The clustered variant LOST its hardware A/B on lucy (packet 2.42 s
-# vs parts 2.97 s, same artifact) — stays opt-in; kept as the
-# bit-tested construction for possible future part-resident streaming.
-PARTS_AUTO_ON = False
-
-
-def wants_flat_parts(tlas: TLAS, auto=True) -> bool:
+def wants_flat_parts(tlas: TLAS) -> bool:
+    """Route through the clustered flatten (same opt-in as wants_flat)."""
     import os
     if tlas is None or tlas.flat_parts is None:
         return False
-    kind = os.environ.get("MRT_TLAS_KERNEL", "")
-    if kind == "flat":
-        return True
-    if kind and kind != "auto":
-        return False
-    return kind == "auto" or (auto and PARTS_AUTO_ON)
+    return os.environ.get("MRT_TLAS_KERNEL", "") in ("flat", "auto")
 
 
-def intersect_tlas_flat_parts(tlas: TLAS, o, d, t_min, t_max,
-                              use_pallas=True) -> Hits:
-    """Fold per-cluster single-level packet traversals into one winner.
+def intersect_tlas_flat_parts(tlas: TLAS, o, d, t_min, t_max) -> Hits:
+    """Fold per-cluster single-level traversals into one winner.
 
     Tie rule: strictly closer t wins; equal t keeps the EARLIER part
     (parts are disjoint spatial clusters, so cross-part exact ties
@@ -470,13 +441,8 @@ def intersect_tlas_flat_parts(tlas: TLAS, o, d, t_min, t_max,
     best_v = jnp.zeros_like(od)
     offset = 0
     for part in tlas.flat_parts:
-        if use_pallas:
-            from ..ops import pallas_bvh
-            t, i, u, v = pallas_bvh.traverse_bvh_tris(
-                part.tris, part.bvh, o, d, t_min, t_max)
-        else:
-            t, i, u, v = bvh_mod.intersect_bvh_tris(
-                part.tris, part.bvh, o, d, t_min, t_max)
+        t, i, u, v = bvh_mod.intersect_bvh_tris(
+            part.tris, part.bvh, o, d, t_min, t_max)
         ok = t < best_t
         best_row = jnp.where(ok, i + jnp.int32(offset), best_row)
         best_u = jnp.where(ok, u, best_u)
@@ -535,9 +501,11 @@ def intersect_tlas(tlas: TLAS, o, d, t_min, t_max, scene=None) -> Hits:
         # (geom.rs:404-407) and jump to its BLAS root.
         e_inst = jnp.clip(leaf_inst, 0, tlas.transform.shape[0] - 1)
         inv_t = tlas.inv_transform[e_inst]                   # (N,4,4)
-        o_enter = (jnp.einsum("nij,nj->ni", inv_t[:, :3, :3], o)
+        o_enter = (jnp.einsum("nij,nj->ni", inv_t[:, :3, :3], o,
+                               precision=HIGHEST)
                    + inv_t[:, :3, 3])
-        d_enter = jnp.einsum("nij,nj->ni", inv_t[:, :3, :3], d)
+        d_enter = jnp.einsum("nij,nj->ni", inv_t[:, :3, :3], d,
+                             precision=HIGHEST)
 
         tlas_next = jnp.where(t_hit & ~t_is_leaf, t_ni + 1,
                               tlas.t_escape[t_ni])
@@ -579,10 +547,10 @@ def intersect_tlas(tlas: TLAS, o, d, t_min, t_max, scene=None) -> Hits:
             q = jnp.cross(tv, ab)
             v = jnp.sum(d_l * q, axis=-1) * inv_det
             t = jnp.sum(ac * q, axis=-1) * inv_det
-            # Deterministic tie rule (VERDICT r2 #8): strictly closer
-            # wins; equal t -> lexicographic lower (instance, triangle).
-            # Order-invariant, so the ordered Pallas TLAS kernel matches
-            # this fallback bit-exactly.
+            # Deterministic tie rule: strictly closer wins; equal t ->
+            # lexicographic lower (instance, triangle).  Order-invariant,
+            # so any traversal order (and tlas_brute) finds the same
+            # winner.
             ok = (valid & det_ok
                   & (u >= 0.0) & (u <= 1.0)
                   & (v >= 0.0) & (u + v <= 1.0)
@@ -616,22 +584,18 @@ def intersect_tlas(tlas: TLAS, o, d, t_min, t_max, scene=None) -> Hits:
 def expand_winner(tlas: TLAS, o, d, best_t, best_inst, best_tri,
                   best_u, best_v) -> Hits:
     """Expand per-ray (t, instance, triangle, u, v) winners to a Hits
-    record in world space (shared by the XLA and Pallas traversals)."""
-    from ..ops import rowlookup
+    record in world space (shared by every TLAS traversal)."""
     from .triangles import shading_table, unpack_shading
 
     tris = tlas.tris
-    # ---- expand winner ---------------------------------------------------
-    # Packed one-row lookups (ops/rowlookup): ~14 separate gathers here
-    # each ran a serial per-row loop on TPU; two packed lookups run two
-    # (MXU-backed and ~free for small tables).
+    # ---- expand winner: two packed row reads (triangle, instance) ---------
     hit = jnp.isfinite(best_t)
     inst = jnp.clip(best_inst, 0, None)
     ti = best_tri
     w = (1.0 - best_u - best_v)[:, None]
     uu, vv = best_u[:, None], best_v[:, None]
 
-    s = unpack_shading(rowlookup.take_rows(shading_table(tris), ti))
+    s = unpack_shading(shading_table(tris)[ti])
     normal_l = s["na"] * w + s["nb"] * uu + s["nc"] * vv
     uv = s["uva"] * w + s["uvb"] * uu + s["uvc"] * vv
     uv = jnp.where(s["has_uv"][:, None], uv, 0.0)
@@ -640,13 +604,14 @@ def expand_winner(tlas: TLAS, o, d, best_t, best_inst, best_tri,
     inst_table = jnp.concatenate(
         [tlas.transform[:, :3, :3].reshape(-1, 9),
          tlas.override.astype(jnp.float32)[:, None]], axis=-1)
-    irow = rowlookup.take_rows(inst_table, inst)
+    irow = inst_table[inst]
     lin = irow[:, :9].reshape(-1, 3, 3)
     ov = jnp.round(irow[:, 9]).astype(jnp.int32)
 
     # World normal: forward linear part then unit (geom.rs:412 — the
     # reference does not use the inverse-transpose; we match it).
-    normal_w = jnp.einsum("nij,nj->ni", lin, normal_l)
+    normal_w = jnp.einsum("nij,nj->ni", lin, normal_l,
+                          precision=HIGHEST)
     norm = jnp.sqrt(jnp.sum(normal_w * normal_w, axis=-1, keepdims=True))
     normal_w = normal_w / jnp.maximum(norm, 1e-20)
 
@@ -658,14 +623,16 @@ def expand_winner(tlas: TLAS, o, d, best_t, best_inst, best_tri,
     # Tangent frame to world space with the same forward-linear
     # convention as the normal (unnormalised, like the reference's
     # object-space tangents, geom.rs:556-560).
-    tangent_w = jnp.einsum("nij,nj->ni", lin, s["tangent"])
-    bitangent_w = jnp.einsum("nij,nj->ni", lin, s["bitangent"])
+    tangent_w = jnp.einsum("nij,nj->ni", lin, s["tangent"],
+                          precision=HIGHEST)
+    bitangent_w = jnp.einsum("nij,nj->ni", lin, s["bitangent"],
+                             precision=HIGHEST)
 
     normal_w, front_face = set_face_normal(d, normal_w)
     # World-space triangle area for the MIS light pdf: transform the
     # edges by the instance's forward linear part.
-    e1_w = jnp.einsum("nij,nj->ni", lin, s["e_ab"])
-    e2_w = jnp.einsum("nij,nj->ni", lin, s["e_ac"])
+    e1_w = jnp.einsum("nij,nj->ni", lin, s["e_ab"], precision=HIGHEST)
+    e2_w = jnp.einsum("nij,nj->ni", lin, s["e_ac"], precision=HIGHEST)
     area_w = 0.5 * jnp.linalg.norm(jnp.cross(e1_w, e2_w), axis=-1)
     return Hits(
         t=jnp.where(hit, best_t, INF),

@@ -21,18 +21,10 @@ from typing import Any, Optional
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from . import spheres as sphere_mod
 from .hit import Hits
-
-# Auto-enable lane-compacted background eval on TPU (bit-exact; the
-# only question is speed — tools/probe_eve_r05.py decides).
-BG_COMPACT_AUTO = False
-
-
-def _bg_compact_on():
-    return BG_COMPACT_AUTO and sphere_mod._use_pallas()
 
 T_MIN = 1e-3  # reference: world.rs:68 — intersect(ray, 0.001, inf)
 
@@ -51,7 +43,7 @@ class Scene:
     #   media bounded by arbitrary instanced meshes (geom.rs:595-660)
     voxels: Any = None                     # tuple[voxels.VoxelGrid, ...]
     #   procedural/dense cell grids walked by gather-free DDA — the
-    #   TPU-native representation of the reference's 3.2M-instanced-cube
+    #   wavefront representation of the reference's 3.2M-instanced-cube
     #   Menger scene (src/scenes/menger.rs:68-124)
     atlas: Optional[Any] = None            # textures.atlas.TextureAtlas
     lights: Optional[Any] = None           # materials.lights.LightTable
@@ -62,8 +54,8 @@ class Scene:
     # re-cast rounds below.
     needs_alpha: bool = struct.field(pytree_node=False, default=False)
     # Static: any MIX rows in the material table?  False elides the
-    # iterative mix-resolution gathers in shading (a large win: table
-    # gathers dominate shading cost on TPU).  Conservative default True.
+    # iterative mix-resolution table reads in shading.  Conservative
+    # default True.
     has_mix: bool = struct.field(pytree_node=False, default=True)
     # Static: every texture id referenced by a MATERIAL row (tex,
     # tex_no, tex_pmdg) is a RAW atlas row — combinators
@@ -104,51 +96,6 @@ class Scene:
             return jnp.zeros(3), jnp.ones(3)
         return (jnp.min(jnp.stack(mins), axis=0),
                 jnp.max(jnp.stack(maxs), axis=0))
-
-    # Hardware-measured sort auto-on thresholds (tools/probe_sort_ab.py,
-    # r3): lucy 122 inst +41%, eve 38 inst +8%, sphere_grid 10k spheres
-    # +14%; cornell ~10 inst -52% (sort overhead beats the cheap
-    # traversal).  Means are bit-identical either way (permutation only).
-    SORT_MIN_INSTANCES = 32
-    SORT_MIN_SPHERES = 4096
-
-    def prefers_sorted_rays(self):
-        """True when per-step lane sorting is worth its cost: packet
-        kernels share one traversal cursor per 1024-ray packet, so on
-        large instanced scenes incoherent packets visit near the union
-        of all subtrees.  Sorting claims that back."""
-        from . import spheres as sph_mod
-        if not sph_mod._use_pallas():
-            return False
-        from ..ops import budget
-        if self.tlas is not None:
-            if not budget.fits(budget.tlas_tables_bytes(self.tlas)):
-                return True  # HBM-streamed: always sort
-            if self.tlas.transform.shape[0] >= self.SORT_MIN_INSTANCES:
-                return True
-        return (self.sphere_bvh is not None and self.spheres is not None
-                and self.spheres.count >= self.SORT_MIN_SPHERES)
-
-    # Hardware-swept sort cadence (tools/probe_sort_cadence.py,
-    # artifacts/sort_cadence_r04.json): the ~1.3 ms argsort every step
-    # only pays for itself on HEAVY divergence — lucy (122 inst)
-    # degrades monotonically past cadence 1 (2.40 -> 3.09 s at 8) and
-    # streamed Menger measured 0% win at cadence 8 (r2), while eve
-    # (37 inst, +19%) and sphere_grid (10k spheres, +21%) both peak
-    # at cadence 4.  Film changes are permutation-order-only (ulp
-    # f32 reassociation on duplicate same-pixel deposits).
-    SORT_CADENCE_HEAVY_INSTANCES = 64
-
-    def sort_cadence(self):
-        """Steps between lane sorts when sorting is on (1 = every)."""
-        from ..ops import budget
-        if self.tlas is not None:
-            if not budget.fits(budget.tlas_tables_bytes(self.tlas)):
-                return 1   # streamed: stale packets re-page blocks
-            if (self.tlas.transform.shape[0]
-                    >= self.SORT_CADENCE_HEAVY_INSTANCES):
-                return 1
-        return 4
 
     def intersect(self, o, d, t_min=T_MIN, t_max=jnp.inf,
                   sampler=None, shading_aux=True) -> Hits:
@@ -204,100 +151,45 @@ class Scene:
 
     def _intersect_once(self, o, d, t_min, t_max, sampler,
                         shading_aux=True) -> Hits:
+        from . import bvh as bvh_mod
+
         hits = Hits.none(o.shape[0])
         if self.spheres is not None:
             if self.sphere_bvh is not None:
-                from . import spheres as sph_mod
-                if sph_mod._use_pallas():
-                    from ..ops import pallas_bvh
-                    hits = hits.closer_of(pallas_bvh.intersect_bvh_spheres(
-                        self.spheres, self.sphere_bvh, o, d, t_min,
-                        t_max))
-                else:
-                    from . import bvh as bvh_mod
-                    hits = hits.closer_of(bvh_mod.intersect_bvh_spheres(
-                        self.spheres, self.sphere_bvh, o, d, t_min,
-                        t_max))
+                hits = hits.closer_of(bvh_mod.intersect_bvh_spheres(
+                    self.spheres, self.sphere_bvh, o, d, t_min, t_max))
             else:
                 hits = hits.closer_of(
                     sphere_mod.intersect(self.spheres, o, d, t_min, t_max))
         if self.triangles is not None:
             from . import triangles as tri_mod  # local: avoid import cycle
             if self.bvh is not None:
-                from . import spheres as sph_mod
-                from ..ops import budget
-                # One audited SMEM budget for every packet kernel's
-                # tables (round-1 had an inconsistent 8MB "VMEM" gate
-                # here that could fault Mosaic on ~50k-tri meshes).
-                smem_bytes = budget.tri_tables_bytes(
-                    self.bvh.n_nodes, self.triangles.count)
-                if (sph_mod._use_pallas()
-                        and budget.fits(smem_bytes)):
-                    from ..ops import pallas_bvh
-                    hits = hits.closer_of(pallas_bvh.intersect_bvh_tris(
-                        self.triangles, self.bvh, o, d, t_min, t_max))
-                else:
-                    from . import bvh as bvh_mod
-                    hits = hits.closer_of(bvh_mod.intersect_bvh(
-                        self.triangles, self.bvh, o, d, t_min, t_max,
-                        scene=self))
+                hits = hits.closer_of(bvh_mod.intersect_bvh(
+                    self.triangles, self.bvh, o, d, t_min, t_max,
+                    scene=self))
             else:
                 hits = hits.closer_of(tri_mod.intersect_brute(
                     self.triangles, o, d, t_min, t_max, scene=self))
         if self.tlas is not None:
-            from . import spheres as sph_mod
             from . import instance as inst_mod
-            from ..ops import budget
-            if sph_mod._use_pallas():
-                from . import tlas_brute
-                if inst_mod.wants_flat(self.tlas):
-                    # World-flattened single-level BVH: small instanced
-                    # scenes ride the mesh packet kernel instead of the
-                    # two-level traversal (geometry/instance.py
-                    # _build_flat; winner semantics preserved, t/normal
-                    # values differ from two-level in ulps only).
-                    from ..ops import pallas_bvh
-                    hits = hits.closer_of(pallas_bvh.intersect_bvh_tris(
-                        self.tlas.flat_tris, self.tlas.flat_bvh, o, d,
-                        t_min, t_max))
-                elif inst_mod.wants_flat_parts(self.tlas):
-                    # Clustered flatten: per-part single-level packet
-                    # launches, winners folded, one shared expansion.
-                    hits = hits.closer_of(
-                        inst_mod.intersect_tlas_flat_parts(
-                            self.tlas, o, d, t_min, t_max,
-                            use_pallas=True))
-                elif tlas_brute.wants_brute(self.tlas):
-                    # Small-geometry TLAS: dense instanced scan beats
-                    # packet traversal (divergence-insensitive; see
-                    # geometry/tlas_brute.py + probe_tlas_brute.py).
-                    hits = hits.closer_of(tlas_brute.intersect_tlas_brute(
-                        self.tlas, o, d, t_min, t_max))
-                elif budget.fits(budget.tlas_tables_bytes(self.tlas)):
-                    from ..ops import pallas_bvh
-                    hits = hits.closer_of(pallas_bvh.intersect_tlas(
-                        self.tlas, o, d, t_min, t_max))
-                else:
-                    # Oversized tables: HBM-streamed packet kernel
-                    # (never the gather fallback, which faults the chip
-                    # at large ray counts).
-                    from ..ops import pallas_stream
-                    hits = hits.closer_of(pallas_stream.intersect_tlas(
-                        self.tlas, o, d, t_min, t_max))
-            elif inst_mod.wants_flat(self.tlas, auto=False):
-                # CPU/XLA analogue of the flat dispatch above, so the
-                # flat path is testable without Pallas.  auto=False:
-                # CPU renders keep the two-level default so the
-                # committed goldens are unchanged (env force only).
-                from . import bvh as bvh_mod
+            from . import tlas_brute
+            if inst_mod.wants_flat(self.tlas):
+                # World-flattened single-level BVH (opt-in,
+                # MRT_TLAS_KERNEL=flat|auto; instance.py _build_flat):
+                # winner semantics preserved, t/normal values differ
+                # from two-level in ulps only.
                 hits = hits.closer_of(bvh_mod.intersect_bvh(
                     self.tlas.flat_tris, self.tlas.flat_bvh, o, d,
                     t_min, t_max, scene=self))
-            elif inst_mod.wants_flat_parts(self.tlas, auto=False):
+            elif inst_mod.wants_flat_parts(self.tlas):
                 hits = hits.closer_of(
                     inst_mod.intersect_tlas_flat_parts(
-                        self.tlas, o, d, t_min, t_max,
-                        use_pallas=False))
+                        self.tlas, o, d, t_min, t_max))
+            elif tlas_brute.wants_brute(self.tlas):
+                # Dense instanced scan: the oracle for the traversal
+                # (MRT_TLAS_KERNEL=brute).
+                hits = hits.closer_of(tlas_brute.intersect_tlas_brute(
+                    self.tlas, o, d, t_min, t_max))
             else:
                 hits = hits.closer_of(inst_mod.intersect_tlas(
                     self.tlas, o, d, t_min, t_max, scene=self))
@@ -332,45 +224,15 @@ class Scene:
         return self.background.eval(d, atlas=self.atlas)
 
     def background_eval_masked(self, d, mask):
-        """where(mask, background_eval(d), 0) — compacting the eval to
-        the masked (miss) lanes when the background is texel-backed.
-
-        The envmap eval's qdata gather costs ~17 ns per OUTPUT row
-        (serial lowering) for every lane even though only miss lanes
-        use the value — 2.42 ms of eve's 8.86 ms step
-        (artifacts/eve_step_r04.json).  ops/compact packs the miss
-        lanes through bit-exact one-hot matmuls so the gather runs on
-        K rows; the transient all-camera-ray steps (count > K) fall
-        back to the full-width eval inside the same program."""
-        import os
-
-        from ..materials.background import CubeMap, SkySphere
-
-        texel_backed = isinstance(self.background, (CubeMap, SkySphere))
-        flag = os.environ.get("MRT_BG_COMPACT")
-        use = texel_backed and flag != "0" and (
-            flag == "1" or _bg_compact_on())
-        if not use:
-            return jnp.where(mask[:, None],
-                             self.background_eval(d), 0.0)
-        from ..ops import compact
-
-        P = d.shape[0]
-        K = max(2048, P // 4)
-        K = -(-K // compact.L_DEFAULT) * compact.L_DEFAULT
-        if K >= P:
-            return jnp.where(mask[:, None],
-                             self.background_eval(d), 0.0)
-        return compact.compact_apply(
-            lambda dc: self.background.eval(dc, atlas=self.atlas),
-            mask, d, K, pad_row=jnp.asarray([1.0, 0.0, 0.0]))
+        """where(mask, background_eval(d), 0)."""
+        return jnp.where(mask[:, None], self.background_eval(d), 0.0)
 
 
 def with_atlas(scene: Scene, atlas) -> Scene:
     """Attach a texture atlas to an already-built scene, recomputing
     the atlas-dependent static flags (a bare scene.replace(atlas=...)
     would leave them at their conservative defaults and pay doubled
-    texel gathers per material sample — tools/probe_eve_step)."""
+    texel gathers per material sample)."""
     from ..textures.atlas import RAW
 
     kinds = np.asarray(atlas.kind)

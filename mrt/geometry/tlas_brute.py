@@ -1,16 +1,9 @@
-"""Instanced brute-force TLAS intersection — gather-free, packet-free.
+"""Instanced brute-force TLAS intersection: the traversal's oracle.
 
-Every TLAS scene the zoo ships has a tiny unique-triangle total
-(cornell 12, playground 210, eve 248, lucy 684) yet pays a per-packet
-two-level BVH traversal (ops/pallas_bvh.intersect_tlas) whose cost is
-set by *ray divergence*, not geometry: mid-path packets visit near the
-union of all members' subtrees (measured: EVE intersect 12.5 ms/step
-at pool 2^16, tools/profile_eve2.py).  This module is the triangle
-analogue of the sphere brute scan that beats the sphere BVH at every
-count below 4096 (BASELINE.md, tools/probe_sphere_cross.py): test
-candidate triangles densely with per-lane predication, no traversal,
-no shared cursors — cost is set by geometry size and is coherence-
-insensitive.
+Tests candidate triangles densely with per-lane predication: no
+traversal, cost set by geometry size alone.  Reached with
+MRT_TLAS_KERNEL=brute; tests compare the two-level traversal
+(geometry/instance.py) against it.
 
 Shape: a `lax.while_loop` over *candidate rounds*.  Each lane walks
 its instances in (entry-t, index) order — candidates are re-derived
@@ -18,18 +11,14 @@ each round from slab entry distances against per-instance world AABBs
 (pure elementwise; the lexicographic cursor (last_e, last_i) replaces
 any per-lane mask) — and early-outs once the next entry exceeds its
 best hit.  A round fetches the lane's inverse transform + triangle
-range via one bit-exact one-hot MXU lookup (ops/rowlookup), warps the
-ray to object space (same arithmetic as the XLA fallback,
-geometry/instance.py:224-226), and scans ALL concatenated triangles
-in chunks with ownership predication (global index within the lane's
-mesh range).  The deterministic (t, instance, triangle) tie rule makes
-the winner identical to the DFS fallback and the packet kernels.
+range with one row lookup, warps the ray to object space (same
+arithmetic as the two-level traversal), and scans ALL concatenated
+triangles in chunks with ownership predication (global index within
+the lane's mesh range).  The deterministic (t, instance, triangle) tie
+rule makes the winner identical to the two-level traversal's.
 
 Matches the closest-hit semantics of the reference's recursive
-Instance intersect (reference: src/geom.rs:275-425) exactly; the
-design has no reference counterpart (it exists because TPU packet
-traversal pays for divergence that a CPU's per-ray recursion does
-not).
+Instance intersect (reference: src/geom.rs:275-425) exactly.
 """
 
 from __future__ import annotations
@@ -39,39 +28,15 @@ import jax.numpy as jnp
 
 from .hit import Hits, INF
 from .triangles import DET_EPS
-from .instance import TLAS, expand_winner
+from .instance import HIGHEST, TLAS, expand_winner
 
 # Triangles per inner-scan chunk; instances per selection chunk.
 TRI_CHUNK = 64
 INST_CHUNK = 16
 
-# Size gates for the (opt-in) dense scan.  The r4 hardware A/B
-# (tools/probe_tlas_brute.py, artifacts/tlas_brute_r04.json) measured
-# the scan LOSING to packet traversal on every zoo TLAS scene —
-# cornell 3.3x, playground 7.8x, eve 4.7x, lucy 13x — so there is no
-# winning crossover and AUTO_ON stays False permanently; the kernel
-# remains available via MRT_TLAS_KERNEL=brute as a bit-exact oracle
-# for the traversal kernels (tests/test_tlas_brute.py).
-MAX_TRIS = 4096
-# rowlookup's one-hot path (and selection cost, linear in I).
-MAX_INSTANCES = 1024
-
-# Frozen (see above): the committed artifact shows a loss everywhere.
-AUTO_ON = False
-
-
 def wants_brute(tlas: TLAS) -> bool:
     import os
-    kind = os.environ.get("MRT_TLAS_KERNEL", "")
-    if kind == "brute":
-        return True
-    if kind and kind != "auto":
-        return False
-    if not (kind == "auto" or AUTO_ON):
-        return False
-    return (tlas.tri_first is not None
-            and tlas.tris.count <= MAX_TRIS
-            and tlas.transform.shape[0] <= MAX_INSTANCES)
+    return os.environ.get("MRT_TLAS_KERNEL", "") == "brute"
 
 
 def _pad_to(x, n):
@@ -82,8 +47,6 @@ def _pad_to(x, n):
 def intersect_tlas_brute(tlas: TLAS, o, d, t_min, t_max) -> Hits:
     """Closest hit over all instances; o, d: (N,3).  t_min/t_max may
     be scalars or (N,) (the alpha re-cast path passes vector t_min)."""
-    from ..ops import rowlookup
-
     n = o.shape[0]
     n_inst = tlas.transform.shape[0]
     tris = tlas.tris
@@ -95,7 +58,7 @@ def intersect_tlas_brute(tlas: TLAS, o, d, t_min, t_max) -> Hits:
 
     # ---- per-instance world AABBs: the exact boxes the TLAS leaves
     # were built from (instance.py build, stored as w_min/w_max) so
-    # this path culls identically to the packet/DFS traversals — a
+    # this path culls identically to the two-level traversal — a
     # device-side recompute can differ by ulps and flip a grazing
     # cull.  Fallback recompute only for pre-existing pytrees.
     if tlas.w_min is not None:
@@ -110,14 +73,15 @@ def intersect_tlas_brute(tlas: TLAS, o, d, t_min, t_max) -> Hits:
         corners = (root_bmin[:, None, :] * (1.0 - combos[None])
                    + root_bmax[:, None, :] * combos[None])   # (I,8,3)
         fwd = tlas.transform
-        wc = (jnp.einsum("iab,icb->ica", fwd[:, :3, :3], corners)
+        wc = (jnp.einsum("iab,icb->ica", fwd[:, :3, :3], corners,
+                         precision=HIGHEST)
               + fwd[:, None, :3, 3])
         w_min = wc.min(axis=1)                               # (I,3)
         w_max = wc.max(axis=1)
 
-    # Instance row table for the per-round one-hot fetch: inverse
-    # transform (12) + triangle range (2).  Range ints are < 2^24 so
-    # the f32 columns (and rowlookup's bf16 split) are exact.
+    # Instance row table for the per-round fetch: inverse transform
+    # (12) + triangle range (2).  Range ints are < 2^24 so the f32
+    # columns are exact.
     inst_table = jnp.concatenate(
         [tlas.inv_transform[:, :3, :].reshape(n_inst, 12),
          tlas.tri_first.astype(jnp.float32)[:, None],
@@ -178,14 +142,15 @@ def intersect_tlas_brute(tlas: TLAS, o, d, t_min, t_max) -> Hits:
          best_v) = st
         active = cand_i >= 0
 
-        rows = rowlookup.take_rows(inst_table,
-                                   jnp.clip(cand_i, 0, None))
+        rows = inst_table[jnp.clip(cand_i, 0, None)]
         inv = rows[:, :12].reshape(-1, 3, 4)
-        # Same object-space warp arithmetic as the fallback
-        # (instance.py:224-226) so winners match bit-exactly.
-        o_l = (jnp.einsum("nij,nj->ni", inv[:, :, :3], o)
+        # Same object-space warp arithmetic as the two-level traversal
+        # (instance.intersect_tlas) so winners match bit-exactly.
+        o_l = (jnp.einsum("nij,nj->ni", inv[:, :, :3], o,
+                          precision=HIGHEST)
                + inv[:, :, 3])
-        d_l = jnp.einsum("nij,nj->ni", inv[:, :, :3], d)
+        d_l = jnp.einsum("nij,nj->ni", inv[:, :, :3], d,
+                         precision=HIGHEST)
         first_l = jnp.round(rows[:, 12]).astype(jnp.int32)
         end_l = first_l + jnp.round(rows[:, 13]).astype(jnp.int32)
 
@@ -197,7 +162,7 @@ def intersect_tlas_brute(tlas: TLAS, o, d, t_min, t_max) -> Hits:
                    & (ti[:, None] < end_l[None])
                    & active[None])
             # Möller–Trumbore, the exact expression sequence of the
-            # fallback BLAS loop (instance.py:256-268).
+            # two-level BLAS loop.
             p = jnp.cross(d_l[None], ac_c[:, None, :])
             det = jnp.sum(ab_c[:, None, :] * p, axis=-1)
             det_ok = jnp.abs(det) >= DET_EPS
@@ -219,7 +184,7 @@ def intersect_tlas_brute(tlas: TLAS, o, d, t_min, t_max) -> Hits:
             cv = jnp.take_along_axis(v, sel[None], axis=0)[0]
             # Deterministic tie rule: strictly closer wins, equal t
             # falls back to lower (instance, triangle) — identical to
-            # the fallback/packet kernels (instance.py:269-278).
+            # the two-level traversal.
             better = ((ct < bt)
                       | ((ct == bt) & jnp.isfinite(ct)
                          & ((cand_i < binst)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from .hit import Hits, set_face_normal, INF
 
@@ -214,12 +214,9 @@ def nearest_hit(tris: Triangles, o, d, t_min, t_max):
 
 
 def shading_table(tris: Triangles):
-    """Per-triangle shading data packed into ONE (T, 29) f32 table.
-
-    A winner expansion that gathers 12 separate arrays runs 12 serial
-    per-row loops on TPU; one packed lookup runs one — and small tables
-    go through the bit-exact one-hot MXU path (ops/rowlookup).
-    Columns: na nb nc (9), uva uvb uvc (6), has_uv (1), material (1),
+    """Per-triangle shading data packed into ONE (T, 29) f32 table,
+    so a winner expansion reads one row per ray instead of gathering
+    12 separate arrays.  Columns: na nb nc (9), uva uvb uvc (6), has_uv (1), material (1),
     tangent bitangent (6), e_ab e_ac (6)."""
     return jnp.concatenate(
         [tris.na, tris.nb, tris.nc,
@@ -248,15 +245,13 @@ def make_hits(tris: Triangles, o, d, t, index, u, v) -> Hits:
     the reference's areal weights (geom.rs:536-552) for points on the
     triangle plane.  Normal is NOT renormalised, matching geom.rs:552.
     """
-    from ..ops import rowlookup
-
     hit = jnp.isfinite(t)
     t_safe = jnp.where(hit, t, 0.0)
     point = o + d * t_safe[:, None]
     w = (1.0 - u - v)[:, None]
     uu, vv = u[:, None], v[:, None]
 
-    s = unpack_shading(rowlookup.take_rows(shading_table(tris), index))
+    s = unpack_shading(shading_table(tris)[index])
     normal = s["na"] * w + s["nb"] * uu + s["nc"] * vv
     uv = s["uva"] * w + s["uvb"] * uu + s["uvc"] * vv
     uv = jnp.where(s["has_uv"][:, None], uv, 0.0)

@@ -26,7 +26,7 @@ distribution-identical by the memorylessness of the exponential.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from .hit import Hits, INF
 

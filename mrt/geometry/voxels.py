@@ -2,15 +2,13 @@
 
 The reference's largest scene builds the level-5 Menger sponge as 20^5 =
 3.2M instanced cubes and BVH-traverses them (reference:
-src/scenes/menger.rs:68-124).  Pointer-chasing a multi-megabyte BVH is
-the worst possible TPU program: every traversal step is a dependent
-scalar load (our HBM-streamed packet kernel renders it correctly but
-DMA-latency-bound, see mrt/ops/pallas_stream.py).  The TPU-first
-observation is that the sponge's cubes exactly tile cells of a regular
-3^level grid whose occupancy is a *closed-form digit rule* — so the
-closest hit is a 3-DDA walk with purely arithmetic occupancy tests:
-zero tables, zero gathers, per-lane cursors (no packet divergence), all
-elementwise XLA that fuses straight into the integrator step.
+src/scenes/menger.rs:68-124).  Pointer-chasing a multi-megabyte BVH
+makes every traversal step a dependent load.  The observation here is
+that the sponge's cubes exactly tile cells of a regular 3^level grid
+whose occupancy is a *closed-form digit rule* — so the closest hit is a
+3-DDA walk with purely arithmetic occupancy tests: zero tables, zero
+gathers, per-lane cursors, all elementwise XLA that fuses straight into
+the integrator step.
 
 `VoxelGrid` is the general component: an axis-aligned grid of solid
 unit cells with occupancy either
@@ -22,8 +20,7 @@ unit cells with occupancy either
                   whole 3^q-cell block, which the DDA skips in one step.
   rule="dense":   an explicit (n,n,n) bool array; a host-built any-
                   occupancy mip pyramid provides the same hierarchical
-                  empty-block skipping (lookups are one-hot matmuls, so
-                  no TPU gather pathology; sized for moderate grids).
+                  empty-block skipping (sized for moderate grids).
 
 Hit semantics equal the interior-face-culled cube surface that
 scenes/menger.sponge_block_mesh bakes (and, for rays that never start
@@ -42,7 +39,7 @@ from typing import Any, Optional
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from .hit import Hits, INF
 
@@ -58,7 +55,7 @@ class VoxelGrid:
     rule: str = struct.field(pytree_node=False, default="menger")
     # rule="dense" only: mip[0] = (n,n,n) occupancy, mip[q] = 3^q-block
     # any-reduction, ..., each stored as float 0/1 flattened to
-    # (n_q * n_q, n_q) for one-hot row lookups.
+    # (n_q * n_q, n_q).
     mips: Optional[Any] = None
 
     @property
@@ -123,19 +120,13 @@ def _menger_levels(grid, cx, cy, cz):
 
 
 def _dense_lookup(mip, m, cx, cy, cz):
-    """mip[(cx*m + cy), cz] for (N,) coords, gather-free.
-
-    One-hot matmul row pick (see mrt/ops/rowlookup.py for why: XLA
-    lowers table gathers to a serial per-row loop on TPU) then a one-hot
-    dot over the lane axis; exact because entries are 0/1.
-    """
+    """mip[(cx*m + cy), cz] > 0.5 for (N,) coords; False where the
+    flattened row or the column falls outside the table."""
     rows = mip.shape[0]
     ridx = cx * m + cy
-    oh_r = (ridx[:, None] == jnp.arange(rows, dtype=jnp.int32)[None, :])
-    row = jnp.dot(oh_r.astype(jnp.float32), mip,
-                  preferred_element_type=jnp.float32)     # (N, m)
-    oh_c = (cz[:, None] == jnp.arange(m, dtype=jnp.int32)[None, :])
-    return jnp.sum(row * oh_c.astype(jnp.float32), axis=-1) > 0.5
+    inside = (ridx >= 0) & (ridx < rows) & (cz >= 0) & (cz < m)
+    val = mip[jnp.clip(ridx, 0, rows - 1), jnp.clip(cz, 0, m - 1)]
+    return inside & (val > 0.5)
 
 
 def _dense_levels(grid, cx, cy, cz):

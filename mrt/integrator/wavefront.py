@@ -1,6 +1,6 @@
 """The wavefront path-tracing integrator.
 
-This is the TPU-native replacement of the reference's recursive
+This is the wavefront replacement of the reference's recursive
 `Camera::trace` (reference: src/world.rs:65-79): instead of one call stack
 per ray, a whole wavefront of N rays advances through a bounce loop
 carrying SoA state — (origin, direction, throughput, radiance, alive).

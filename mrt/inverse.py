@@ -1,6 +1,6 @@
 """Inverse rendering: differentiate renders w.r.t. scene parameters.
 
-The reference is forward-only; differentiability is a new TPU-native
+The reference is forward-only; differentiability is a new
 capability (SURVEY §7 step 7).  The integrator's `differentiable=True`
 mode runs the bounce loop as a checkpointed scan so `jax.grad` flows
 through hit geometry, attenuation, emission, textures and backgrounds;

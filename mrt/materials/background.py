@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..math import vec
 
@@ -87,7 +87,7 @@ class CubeMap:
     transform: jnp.ndarray  # (4,4)
     # Static: all six face rows are RAW atlas rows (e.g. baked by
     # envmaps.environment) -> eval takes the single-gather sample path
-    # (bit-identical; halves the dominant cubemap cost on TPU).
+    # (bit-identical; one texel gather per eval instead of two).
     faces_raw: bool = struct.field(pytree_node=False, default=False)
 
     @classmethod
@@ -104,7 +104,7 @@ class CubeMap:
     def eval(self, directions, atlas=None):
         # Explicit broadcast dot: an einsum here lowers to a dot_general
         # that XLA treats as a fusion boundary in the middle of the
-        # bounce loop (the sphere nearest_t lesson, BASELINE r2);
+        # bounce loop (as in spheres.nearest_t);
         # three fused multiply-adds are bit-identical (same
         # left-to-right contraction order) and free.
         R = self.transform[:3, :3]

@@ -3,8 +3,8 @@
 The reference dispatches `&dyn Material::scatter/emit` per ray
 (reference: src/material.rs:15-27, src/world.rs:65-79).  Here one call
 shades a whole wavefront: every material class is evaluated for every ray
-on the VPU and the per-ray result is selected by the hit's material row —
-cheaper on TPU than sorting by material for the small class count (8).
+and the per-ray result is selected by the hit's material row — no sort
+by material for the small class count (8).
 
 Semantics matched to the reference:
   Lambertian  normal + random_unit_vector, degenerate->normal
@@ -33,59 +33,16 @@ from . import table as T
 
 
 def _rows_of(materials, rows):
-    """One packed-material lookup for a wavefront's rows (bit-exact
-    one-hot MXU path; identical calls CSE inside a jitted step)."""
-    from ..ops.rowlookup import take_rows
-
-    return take_rows(materials.packed, rows)
-
-
-# Auto-enable need-masked texel-fetch compaction on TPU (exact modulo
-# the sample math's fusion-context FMA contraction — ulp class;
-# tools/probe_eve_r05 decides the default).
-TEX_COMPACT_AUTO = False
-
-
-def _tex_compact_on(P):
-    import os
-
-    flag = os.environ.get("MRT_TEX_COMPACT")
-    if flag == "0":
-        return False
-    if flag == "1" or flag == "interpret":
-        return True
-    if not TEX_COMPACT_AUTO or P < 16384:
-        return False
-    from ..geometry.spheres import _use_pallas
-
-    return _use_pallas()
+    """One packed-material row read per lane (identical calls CSE
+    inside a jitted step)."""
+    return materials.packed[rows]
 
 
 def sample_tex(scene, ids, uv, need=None):
-    """Atlas sample for a wavefront, optionally restricted to the
-    lanes that actually consume the value (zeros elsewhere).
-
-    The qdata gather costs ~17 ns per OUTPUT row on TPU whether or
-    not a lane needs the texel; with `need` given and compaction on,
-    the fetch runs on the <= K compacted needing lanes
-    (ops/compact — one-hot MXU both ways, no serial loops).  Callers
-    must already mask every consumer by `need` (they do: is_eve /
-    applies / tex>=0 & hit selects)."""
-    ids0 = jnp.maximum(ids, 0)
-    if need is None or not _tex_compact_on(ids.shape[0]):
-        s = scene.atlas.sample(ids0, uv, raw=scene.mat_tex_raw)
-        return s if need is None else jnp.where(need[:, None], s, 0.0)
-    from ..ops import compact
-
-    P = ids.shape[0]
-    K = -(-max(2048, P // 4) // compact.L_DEFAULT) * compact.L_DEFAULT
-    x = jnp.concatenate(
-        [ids0.astype(jnp.float32)[:, None], uv], axis=-1)
-    fn = lambda xc: scene.atlas.sample(
-        jnp.round(xc[:, 0]).astype(jnp.int32), xc[:, 1:3],
-        raw=scene.mat_tex_raw)
-    return compact.compact_apply(
-        fn, need, x, K, pad_row=jnp.asarray([0.0, 0.5, 0.5]))
+    """Atlas sample for a wavefront; with `need`, zeros on the lanes
+    that do not consume the value."""
+    s = scene.atlas.sample(jnp.maximum(ids, 0), uv, raw=scene.mat_tex_raw)
+    return s if need is None else jnp.where(need[:, None], s, 0.0)
 
 
 def _icol(packed_rows, col):
@@ -144,16 +101,12 @@ def eve_surface(scene, rows, uv, hit=None):
     """EVE packed-PBR surface evaluation (reference: eve.rs:91-134).
 
     Returns (color (N,3), mix_ratio (N,), glow_emission (N,3)).
-    `hit`: optional need mask — texel fetches compact to lanes that
-    hit textured geometry (outputs are zero elsewhere; every consumer
-    already selects by is_eve).
+    `hit`: optional need mask — texel values are zeroed on lanes that
+    did not hit textured geometry (every consumer already selects by
+    is_eve).
     """
     materials = scene.materials
     m = _rows_of(materials, rows)
-    # (A fused 32-col pair gather for ar+pmdg was tried and measured
-    # SLOWER on hardware — 4.2 vs 2x1.6 ms: the serial gather loop's
-    # cost grows with row bytes, so two 16-col fetches win.  See
-    # BASELINE r4 "texture gather work".)
     tex = _icol(m, T.MaterialTable.C_TEX)
     tex_pmdg = _icol(m, T.MaterialTable.C_TEX_PMDG)
     ar = sample_tex(scene, tex, uv,
@@ -172,9 +125,8 @@ def eve_surface(scene, rows, uv, hit=None):
     i0 = jnp.clip(jnp.floor(i).astype(jnp.int32), 0, 3)
     i1 = jnp.clip(jnp.ceil(i).astype(jnp.int32), 0, 3)
     frac = (i - i0.astype(jnp.float32))[..., None]
-    # 4-way masked select instead of take_along_axis: a per-ray gather
-    # along axis 1 lowers to a serial row loop on TPU; four masked adds
-    # are pure VPU work.
+    # 4-way masked select instead of take_along_axis: four masked adds
+    # are elementwise work that fuses.
     c0 = jnp.zeros(pal.shape[:1] + (3,), pal.dtype)
     c1 = jnp.zeros_like(c0)
     for k in range(4):
@@ -395,19 +347,14 @@ def _scatter_from(scene, rows, mtype, params, hits, d_in, sampler):
 def shade_hit(scene, hits, d_in, em_sampler, sc_sampler):
     # Combined emission + scatter.  When the scene has no Mix rows the
     # material row resolution is the identity, so BOTH evaluations share
-    # one mtype gather and one packed-params gather (gathers dominate
-    # TPU shading cost).  RNG streams are identical to calling
-    # emitted() then scatter().
+    # one mtype read and one packed-params read.  RNG streams are
+    # identical to calling emitted() then scatter().
     materials = scene.materials
     if not scene.has_mix:
         em_sampler.skip(T.MAX_MIX_DEPTH)
         sc_sampler.skip(T.MAX_MIX_DEPTH)
         rows = hits.material
-        # Bit-exact one-hot MXU lookup: the serial-loop gathers XLA
-        # emits here cost ~1.35ms/step at 2^17 lanes (profile_shade.py).
-        from ..ops.rowlookup import take_rows_with_int
-        params, mtype = take_rows_with_int(materials.params,
-                                           materials.mtype, rows)
+        params, mtype = materials.params[rows], materials.mtype[rows]
         e = _emitted_from(scene, rows, mtype, params[:, 6:9], hits)
         atten, new_dir, scattered, lobe = _scatter_from(
             scene, rows, mtype, params, hits, d_in, sc_sampler)

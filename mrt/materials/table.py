@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 LAMBERTIAN = 0
 METAL = 1
@@ -78,8 +78,7 @@ class MaterialTable:
     def params(self):
         """Packed hot parameters [albedo4, fuzz, ior, emit3] (M,9):
         shading gathers this matrix ONCE per wavefront instead of 5+
-        separate table gathers (gathers dominate shading cost on TPU).
-        Computed on the fly so field updates (e.g. inverse rendering
+        separate table gathers.  Computed on the fly so field updates (e.g. inverse rendering
         optimising `albedo`) can never go stale; the concat is tiny
         (M rows) and fuses."""
         return jnp.concatenate(
@@ -100,12 +99,9 @@ class MaterialTable:
     @property
     def packed(self):
         """EVERY column in one (M,31) f32 matrix so any shading path
-        resolves a wavefront's material data with ONE bit-exact one-hot
-        MXU lookup (ops/rowlookup) instead of per-column gathers — XLA
-        lowers each (N,)-row gather to a ~0.3 ms serial loop at N=2^16,
-        and the EVE path alone touched 8+ columns (24 ms/step of
-        gathers, tools/profile_eve.py).  Identical-argument lookups CSE
-        to a single matmul inside one jitted step."""
+        resolves a wavefront's material data with ONE row read instead
+        of per-column gathers (the EVE path alone touches 8+ columns).
+        Identical-argument reads CSE inside one jitted step."""
         f = lambda x: x.astype(jnp.float32)[:, None]
         return jnp.concatenate(
             [self.params,                          # 0:9

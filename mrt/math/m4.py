@@ -14,9 +14,12 @@ numeric conventions reproduce exactly.
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 TAU = 2.0 * np.pi
+# Full f32 products: a GPU would otherwise be free to use TF32.
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def identity():
@@ -58,28 +61,35 @@ def scale(s):
     return jnp.diag(jnp.concatenate([s, jnp.ones((1,), jnp.float32)]))
 
 
-def matmul(a, b):
-    return a @ b
+def matmul(*ms):
+    """Product of 4x4 matrices, left to right, in full f32."""
+    out = ms[0]
+    for m in ms[1:]:
+        out = jnp.matmul(out, m, precision=HIGHEST)
+    return out
 
 
 def transform_point(m, p):
     """Apply m to points p of shape (..., 3) with w=1."""
-    return jnp.einsum("ij,...j->...i", m[:3, :3], p) + m[:3, 3]
+    return (jnp.einsum("ij,...j->...i", m[:3, :3], p,
+                       precision=HIGHEST)
+            + m[:3, 3])
 
 
 def transform_vector(m, v):
     """Apply m's linear part to vectors v of shape (..., 3) (w=0)."""
-    return jnp.einsum("ij,...j->...i", m[:3, :3], v)
+    return jnp.einsum("ij,...j->...i", m[:3, :3], v,
+                      precision=HIGHEST)
 
 
 def trs(translation_v, rotation_turns, scale_v):
     """T * Rx * Ry * Rz * S, exactly the reference's Instance composition
     (src/geom.rs:344-367)."""
-    return (translation(translation_v)
-            @ rotate_x(rotation_turns[0])
-            @ rotate_y(rotation_turns[1])
-            @ rotate_z(rotation_turns[2])
-            @ scale(scale_v))
+    return matmul(translation(translation_v),
+                  rotate_x(rotation_turns[0]),
+                  rotate_y(rotation_turns[1]),
+                  rotate_z(rotation_turns[2]),
+                  scale(scale_v))
 
 
 def trs_inverse(translation_v, rotation_turns, scale_v):
@@ -90,11 +100,8 @@ def trs_inverse(translation_v, rotation_turns, scale_v):
     r = jnp.asarray(rotation_turns, jnp.float32)
     s = jnp.asarray(scale_v, jnp.float32)
     s = jnp.broadcast_to(s, (3,))
-    return (scale(1.0 / s)
-            @ rotate_z(-r[2])
-            @ rotate_y(-r[1])
-            @ rotate_x(-r[0])
-            @ translation(-t))
+    return matmul(scale(1.0 / s), rotate_z(-r[2]), rotate_y(-r[1]),
+                  rotate_x(-r[0]), translation(-t))
 
 
 # -- batched host-side constructors (numpy) ---------------------------------

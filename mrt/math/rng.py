@@ -2,14 +2,14 @@
 
 The reference uses one global `fastrand` stream seeded once
 (src/main.rs:86, src/math.rs:244-246); every thread advances it
-independently, so renders are only reproducible in expectation.  A TPU
+independently, so renders are only reproducible in expectation.  A
 wavefront tracer wants a *stateless* generator: every random draw is a pure
 hash of ``(seed, ray_id, bounce, draw)``, so renders are bit-identical
 across any tiling, mesh shape, or host count — the draw for pixel P, sample
 S, bounce B does not depend on scheduling.
 
 We use PCG4D (Jarzynski & Olano, "Hash Functions for GPU Rendering", JCGT
-2020): 4 x u32 in, 4 decorrelated u32 out, a handful of VPU ops — far
+2020): 4 x u32 in, 4 decorrelated u32 out, a handful of integer ops — far
 cheaper than threefry and plenty for Monte Carlo rendering.
 """
 

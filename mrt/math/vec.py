@@ -1,8 +1,8 @@
 """Batched 3-vector math on arrays of shape (..., 3).
 
 The reference implements V3 as a scalar struct with operator overloads
-(reference: src/math.rs:47-149, src/math/generic.rs).  On TPU the natural
-representation is an array whose trailing axis is the component axis, so a
+(reference: src/math.rs:47-149, src/math/generic.rs).  For batched JAX
+code the natural representation is an array whose trailing axis is the component axis, so a
 "V3" here is any ``(..., 3)`` array and every op below is batched.  All
 helpers are pure jnp and differentiable.
 """

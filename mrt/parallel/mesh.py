@@ -1,8 +1,8 @@
 """Device mesh construction + distributed runtime init.
 
 The reference's only parallelism is `std::thread` row-stealing on one CPU
-(reference: src/main.rs:159-212).  The TPU equivalent is a 2D logical
-mesh over all chips:
+(reference: src/main.rs:159-212).  The equivalent here is a 2D logical
+mesh over all devices:
 
   axis "tile": image rows are statically sharded     (replaces dynamic
                row stealing — SPMD work is uniform, so static tiles win)
@@ -52,8 +52,8 @@ def init_distributed(coordinator=None, num_processes=None, process_id=None):
     """Initialise the multi-host runtime (no-op on a single process).
 
     The reference has no distributed backend at all (SURVEY §2); this is
-    the TPU-native equivalent: ICI within a slice, DCN across slices,
-    all hidden behind `jax.distributed`.
+    the equivalent: device-to-device links within a host, the network
+    across hosts, all hidden behind `jax.distributed`.
     """
     if num_processes is None or num_processes <= 1:
         return

@@ -4,13 +4,14 @@ Replaces the reference's two thread fan-outs (row stealing + per-thread
 sample passes, reference: src/main.rs:150-295) with one `shard_map`
 program: every device renders its static row tile for its sample stride,
 then the (radiance, bounce) sums are `psum`'d over the spp axis — the
-only cross-device communication, riding ICI.  The film stays row-sharded
+only cross-device communication.  The film stays row-sharded
 on device; nothing crosses hosts until export gathers it.
 
 RNG discipline: random draws are pure functions of (seed, global pixel
 id, global sample index), so a render is bit-identical for every mesh
-shape — 1 chip and 256 chips produce the same image (SURVEY §7 "hard
-parts" #5).
+shape (SURVEY §7 "hard parts" #5), up to float reassociation: the
+order of float adds differs between mesh shapes in the psum and, on a
+GPU, from run to run in the persistent film's atomic scatter-add.
 """
 
 from __future__ import annotations
@@ -147,13 +148,11 @@ def render_sharded(scene, camera, width, height, mesh, spp=64, seed=1,
 
 def render_pass_sharded_persistent(scene, camera, film: Film, seed,
                                    sample_start, *, width, height,
-                                   samples, max_depth, mesh, pool=None,
-                                   pend=False):
+                                   samples, max_depth, mesh, pool=None):
     """Multi-device ray-regeneration pass: each device's lane pool
     consumes its own (row-tile x sample-stride) work queue; the only
     collective is one psum of the spp-axis contribution deltas."""
-    from ..integrator.persistent import (render_samples_persistent,
-                                         POOL, _pend_enabled)
+    from ..integrator.persistent import render_samples_persistent, pool_for
 
     n_tile = mesh.shape[TILE_AXIS]
     n_spp = mesh.shape[SPP_AXIS]
@@ -163,16 +162,7 @@ def render_pass_sharded_persistent(scene, camera, film: Film, seed,
         raise ValueError(f"samples {samples} % spp axis {n_spp} != 0")
     rows_per = height // n_tile
     my_samples = samples // n_spp
-    pool = pool or POOL
-    # Resolve outside shard_map: inside, pixel_offset is traced.
-    pend = _pend_enabled(pend, pool=pool, width=width,
-                         height=height, slots=None)
-    # n_pixels layout differs per shard; re-gate on the local shape.
-    if pend:
-        from ..ops import pallas_deposit as pd
-        from ..integrator.persistent import _slots_for
-        se, sl, npad, bm = _slots_for(rows_per * width, None)
-        pend = pd.usable(pool, se if bm else npad) and pend
+    pool = pool or pool_for(rows_per * width, my_samples, max_depth)
 
     def shard_fn(scene, camera, film_sum, film_depth, film_samples):
         tile = jax.lax.axis_index(TILE_AXIS)
@@ -186,7 +176,7 @@ def render_pass_sharded_persistent(scene, camera, film: Film, seed,
             film_sum=fs_in, depth_sum=ds_in,
             pixel_offset=tile * rows_per * width,
             n_pixels=rows_per * width,
-            sample_stride=n_spp, pend=pend)
+            sample_stride=n_spp)
         # Each spp rank added its own samples on top of the shared base;
         # psum the deltas so the base isn't multiplied.
         fs = fs_in + jax.lax.psum(fs_out - fs_in, SPP_AXIS)
@@ -200,10 +190,6 @@ def render_pass_sharded_persistent(scene, camera, film: Film, seed,
         in_specs=(P(), P(), P(TILE_AXIS, None, None), P(TILE_AXIS, None),
                   P()),
         out_specs=(P(TILE_AXIS, None, None), P(TILE_AXIS, None), P()),
-        # Pallas kernels don't propagate varying-manual-axes typing
-        # through interpret-mode bodies; fall back to the legacy
-        # auto-pbroadcast behavior when one is in the graph.
-        check_vma=not pend,
     )
     new_sum, new_depth, new_samples = fn(
         scene, camera, film.sum, film.depth_sum, film.samples)

@@ -54,9 +54,9 @@ class RenderConfig:
     # unbiased early termination of low-energy paths.
     rr_depth: Optional[int] = None
     # Lane coherence sorting (Morton cell + direction octant) for the
-    # persistent integrator.  None = auto (on for scenes whose packet
-    # TLAS streams from HBM); True/False forces.  Permutes lanes only —
-    # the estimator and every RNG draw are unchanged.
+    # persistent integrator: None/False = off, True = every step, k =
+    # every k steps.  Permutes lanes only — the estimator and every RNG
+    # draw are unchanged.
     sort_rays: Optional[bool] = None
     # Live viewer (the reference's interactive window, main.rs:297-532):
     # `--serve` starts a local HTTP page with runtime display-mode keys,

@@ -3,7 +3,7 @@
 The reference optionally runs Intel Open Image Denoise over the
 tonemapped sRGB frame with albedo+normal guide buffers
 (reference: src/main.rs:724-747, behind the `denoise` cargo feature).
-OIDN is a CPU neural filter; the TPU-native stand-in is an edge-aware
+OIDN is a CPU neural filter; the stand-in here is an edge-aware
 à-trous wavelet filter (SVGF-style) with joint albedo/normal/color
 range weights — pure jnp, jittable, and it uses the exact same guide
 buffers and in-place-on-sRGB call convention.
@@ -53,15 +53,13 @@ def denoise(rgb, albedo=None, normal=None, iterations=3,
         None/0 disables.
     Returns filtered (H,W,3).
 
-    Defaults were grid-searched against converged references on the
-    captured buffers (tools/denoise_tune.py, artifacts/
-    denoise_buffers.npz): iterations=3 + sigma_color=0.2 lifted rtiow
-    4-spp from 27.05 to 29.13 dB (hardware-regenerated r4 artifact:
-    artifacts/denoise_r04.json).  The no-NEE cornell regime is
-    energy-limited, not filter-limited — its 4-spp frame carries 18%
-    of the converged energy with 7% non-black pixels, so no post
-    filter can exceed ~11 dB there; the production answer is NEE
-    (the same artifact's cornell_nee row: 13.41 -> 20.11 dB).
+    Defaults were grid-searched against converged references:
+    iterations=3 + sigma_color=0.2 lifted rtiow 4-spp from 27.05 to
+    29.13 dB PSNR (an image-quality figure, not a speed).  The no-NEE
+    cornell regime is energy-limited, not filter-limited — its 4-spp
+    frame carries 18% of the converged energy with 7% non-black
+    pixels, so no post filter can exceed ~11 dB there; the production
+    answer is NEE (cornell_nee: 13.41 -> 20.11 dB).
     """
     out = rgb
     if firefly_k:

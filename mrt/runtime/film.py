@@ -1,7 +1,7 @@
 """Progressive accumulation film + tonemapping + display modes.
 
 Replaces the reference's `Image` (a mutex'd `(sample_count, Vec<(V3,u32)>)`,
-reference: src/main.rs:598-638): on TPU the film is a pure pytree
+reference: src/main.rs:598-638): here the film is a pure pytree
 `(sum, depth_sum, samples)` and "merge" is just addition — order-invariant,
 so shards can be `psum`'d.  Tonemap matches `to_rgb_bytes`
 (main.rs:640-722): scale by 1/samples, gamma 1/2.2, clamp, with the same
@@ -20,7 +20,7 @@ from typing import Optional
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 
 class DisplayMode(enum.Enum):

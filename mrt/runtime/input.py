@@ -4,7 +4,7 @@ The reference polls a gamepad into an `InputCollection` shared with the
 render thread (reference: src/main.rs:333-360,500-532) and the Mario
 scene serialises per-frame input to `record_input.bin` for reproducible
 animations (scenes/mario.rs:318-343, flags main.rs:50-51).  Headless
-TPU rendering has no gamepad; the same capability here is a per-frame
+accelerator rendering has no gamepad; the same capability here is a per-frame
 input struct with binary record/replay so dynamic scenes stay
 reproducible.
 """

@@ -8,7 +8,7 @@ is a from-scratch equivalent: a triangle-soup collision structure fed
 from the OBJ loader and a capsule character controller (gravity, ground
 detection, jumping, moving-platform carry) ticked once per frame from an
 `InputCollection`.  All NumPy: physics is inherently sequential
-single-body work and belongs on host, not the TPU.
+single-body work and belongs on host, not the accelerator.
 
 The capsule is resolved as two spheres on its axis (feet + chest); each
 tick integrates velocity, then iteratively pushes the spheres out of the

@@ -85,44 +85,22 @@ def render(scene, camera, width, height, spp=64, seed=1,
 def render_pass_persistent(scene, camera, film: Film, seed, sample_start,
                            *, width, height,
                            max_depth=wavefront.MAX_DEPTH, samples=1,
-                           pool=None, rr_depth=None, sort_rays=None,
-                           film_mm=None):
+                           pool=None, rr_depth=None, sort_rays=None):
     """Ray-regeneration render pass (integrator.persistent): ~100% lane
     utilisation regardless of depth — the fast path for deep bounces.
 
-    Dispatches are chunked from the host so a slow-traversal scene can
-    never exceed the accelerator's execution watchdog."""
-    from ..integrator.persistent import (render_samples_chunked, POOL,
-                                         SLOTS, FLUSH_STEPS)
+    sort_rays: lane-sort cadence in steps (0 or None = off)."""
+    from ..integrator.persistent import render_samples_chunked, pool_for
 
     if pool is None:
-        pool = POOL
-        # Big-frame claim-window safety: the rolling slot window holds
-        # SLOTS*samples items; claims advance ~pool/avg_depth items per
-        # step and a straggler pins the flush frontier for up to
-        # max_depth + flush-lag steps.  Cap the pool so the window
-        # out-spans the deepest path (~2x margin at avg_depth ~2.5;
-        # probed on v5e: pool 2^17 at a 2M-item window starves to 3%
-        # active, the capped pool holds ~100%).
-        if width * height > SLOTS:
-            cap = int(SLOTS * samples * 2.0
-                      / (max_depth + FLUSH_STEPS))
-            pool = max(8192, min(pool, cap // 8192 * 8192))
-
-    if sort_rays is None:
-        # Auto: coherence sorting pays for itself exactly where packet
-        # traversal diverges; the cadence (steps between sorts) is the
-        # hardware-swept per-scene rule (Scene.sort_cadence).
-        sort_rays = (scene.sort_cadence()
-                     if scene.prefers_sorted_rays() else 0)
+        pool = pool_for(width * height, samples, max_depth)
 
     film_sum, depth_sum = render_samples_chunked(
         scene, camera, width, height, seed, sample_start, samples,
         max_depth=max_depth, pool=pool,
         film_sum=film.sum.reshape(-1, 3),
         depth_sum=film.depth_sum.reshape(-1), rr_depth=rr_depth,
-        sort_rays=int(sort_rays),  # cadence: 0 off, k = every k steps
-        film_mm=film_mm)
+        sort_rays=int(sort_rays or 0))
     return film.replace(
         sum=film_sum.reshape(height, width, 3),
         depth_sum=depth_sum.reshape(height, width),

@@ -4,7 +4,7 @@ The reference opens a winit/OpenGL window that repaints as render
 threads merge passes, with runtime keys — 1..5 display modes, E export,
 backtick QUICK_PASS (abort the render and show the albedo preview)
 (reference: src/main.rs:297-532; keys 418-441; QUICK_PASS 224-231).
-A TPU box is headless, so the same interaction ships as a tiny
+An accelerator host is headless, so the same interaction ships as a tiny
 stdlib-http server: the browser polls the tonemapped frame and posts
 keystrokes back; the render loop polls the shared control state between
 passes, aborting and restarting exactly like the reference's
@@ -17,7 +17,6 @@ backtick quick-pass toggle.
 
 from __future__ import annotations
 
-import io
 import json
 import threading
 import time
@@ -207,12 +206,9 @@ def _handler(state: ViewerState):
 def png_bytes(rgb_bottom_up):
     """Encode (H,W,3) uint8 bottom-up rows to PNG bytes (same flip as
     io.save_png, main.rs:760-783)."""
-    from PIL import Image as PILImage
+    from .io import encode_png
 
-    buf = io.BytesIO()
-    PILImage.fromarray(np.asarray(rgb_bottom_up)[::-1]).save(
-        buf, format="PNG")
-    return buf.getvalue()
+    return encode_png(np.asarray(rgb_bottom_up)[::-1])
 
 
 class _Abort(Exception):

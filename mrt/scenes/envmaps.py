@@ -91,8 +91,8 @@ def environment(atlas: AtlasBuilder, name="j02", rotation=(0.4, 0.2, 0.1),
 
     # Reference quirk: rotation built from three rotate_x calls
     # (material.rs:103-105) -> net rotate_x(rx+ry+rz).
-    rot = (m4.rotate_x(rotation[0]) @ m4.rotate_x(rotation[1])
-           @ m4.rotate_x(rotation[2]))
+    rot = m4.matmul(m4.rotate_x(rotation[0]), m4.rotate_x(rotation[1]),
+                    m4.rotate_x(rotation[2]))
     # Every face is a host-baked RAW row (bake_addition -> add_raw),
     # so eval can take the single-gather sample path.
     return CubeMap.create(*baked, transform=rot, faces_raw=True)

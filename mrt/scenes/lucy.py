@@ -73,9 +73,8 @@ class Lucy:
             statue, max_dim = _load_lucy(asset)
         else:
             statue, max_dim = _standin_statue()
-        # SAH trees cut node visits on the irregular statue: +9% on
-        # hardware with bit-identical means (artifacts/bvh_sah_r04.json,
-        # native C++ binned-SAH port r5).  MRT_BVH=median overrides.
+        # SAH trees cut node visits on the irregular statue, with
+        # bit-identical means.  MRT_BVH=median overrides.
         statue_mesh = sb.add_mesh(statue, split="sah")
 
         g = self.grid

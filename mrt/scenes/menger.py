@@ -144,15 +144,15 @@ class Menger:
     voxel=True (default): a single procedural `VoxelGrid` — the sponge's
     cubes exactly tile a 3^level grid whose occupancy is the closed-form
     digit rule (sponge_occupancy), so the closest hit is a gather-free
-    hierarchical DDA (geometry/voxels.py).  This is the TPU-native path
-    that renders the reference's 3.2M-cube level-5 scene at full speed.
+    hierarchical DDA (geometry/voxels.py): the path that renders the
+    reference's 3.2M-cube level-5 scene without a BVH.
 
     voxel=False: instanced triangle meshes via the TLAS — `bake` levels
     fused into one greedy-meshed block (sponge_block_mesh), the
     remaining `level - bake` levels instanced; (5, 2) is 8000 instances
     of a 1176-triangle block, identical surface.  bake=0 reproduces the
     literal per-cube instancing (menger.rs:86-103).  Kept as the
-    general-TLAS stress path (it exercises the HBM-streamed kernel)."""
+    general-TLAS stress path."""
 
     def __init__(self, aspect_ratio=16.0 / 9.0, level=5, bake=2,
                  voxel=True):

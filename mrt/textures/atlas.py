@@ -1,7 +1,7 @@
 """Texture atlas: all surfaces in one flat buffer, sampled by gathers.
 
 The reference's `Surface` trait family (reference: src/texture.rs) is a
-tree of trait objects sampled per-ray.  On TPU every texture's pixels
+tree of trait objects sampled per-ray.  Here every texture's pixels
 live in one flat (P,4) array; a texture id indexes SoA row metadata
 (offset/size/wrap/kind) and `sample(ids, uv)` bilinearly samples a whole
 wavefront with gathers.
@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 # Row kinds
 RAW = 0
@@ -80,26 +80,21 @@ class TextureAtlas:
     right: jnp.ndarray     # (T,) child id (RAW rows: self)
     mode: jnp.ndarray      # (T,) blend mode
     fb_color: jnp.ndarray  # (T,4) fallback solid color
-    # Gather-pathology fixes (TPU lowers an (N,)-row gather to a serial
-    # per-row loop, ~0.3 ms per gather at N=2^16 — EVE shading was 24
-    # ms/step of gathers):
+    # Packed tables, so a sample reads few wide rows instead of many
+    # narrow ones:
     #   qdata: (P,16) quad-packed texels [t(x,y) t(x+1,y) t(x,y+1)
     #     t(x+1,y+1)], edge-clamped.  ONE gather per bilinear sample
     #     instead of four; the clamped neighbour always carries lerp
     #     weight exactly 0, so results are bit-identical.
     #   meta: (T,12) f32-packed row metadata [offset width height wrap
-    #     kind left right mode fb_color(4)] for ops/rowlookup (bit-exact
-    #     one-hot MXU lookup) instead of ~12 separate gathers.
-    # Both are None on old pytrees / oversized atlases (gather fallback).
+    #     kind left right mode fb_color(4)]: one row read instead of
+    #     ~12 separate gathers.
+    # Both are None on old pytrees / oversized atlases (per-array reads).
     qdata: jnp.ndarray = None
     meta: jnp.ndarray = None
     # Static: every row is RAW (no combinators) -> sample() can skip the
     # right-child sample and the combinator selects entirely.
     all_raw: bool = struct.field(pytree_node=False, default=False)
-    # (A 32-col PAIRED texel buffer fetching two same-shape textures
-    # in one gather was tried in r4 and measured SLOWER on hardware —
-    # the serial gather loop's cost grows with row bytes, so two
-    # 16-col quad fetches win.  See BASELINE r4.)
 
     @property
     def count(self):
@@ -123,9 +118,7 @@ class TextureAtlas:
             return (self.offset[ids], self.width[ids], self.height[ids],
                     self.wrap[ids], self.kind[ids], self.left[ids],
                     self.right[ids], self.mode[ids], self.fb_color[ids])
-        from ..ops import rowlookup
-
-        m = rowlookup.take_rows(self.meta, ids)
+        m = self.meta[ids]
         i = lambda k: jnp.round(m[:, k]).astype(jnp.int32)
         return (i(0), i(1), i(2), i(3), i(4), i(5), i(6), i(7),
                 m[:, 8:12])
@@ -172,9 +165,7 @@ class TextureAtlas:
         raw, combinators only in the background).  Bit-identical to
         the general path for raw ids (kind==RAW selects `sl`, and a
         RAW row's left child is itself) but does ONE texel gather
-        instead of two — gathers lower to serial per-row loops on TPU
-        (~2.4 ms per sample at 2^16 lanes, tools/probe_eve_step.py),
-        so this halves the dominant cost of textured shading."""
+        instead of two."""
         ids = jnp.asarray(ids)
         if self.all_raw or raw:
             # left == self for RAW rows; no combinator resolution.

@@ -2,7 +2,7 @@
 
 The reference's observability is wall-clock prints (reference:
 src/main.rs:254,270) plus keeping debug symbols for external profilers
-(Cargo.toml:25-26).  TPU-native equivalents: `jax.profiler` traces
+(Cargo.toml:25-26).  The equivalents here: `jax.profiler` traces
 (viewable in XProf/TensorBoard) and integrator statistics derived from
 the film.
 """

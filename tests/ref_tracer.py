@@ -3,7 +3,7 @@
 Golden oracle for correctness tests (SURVEY §7 step 2): implements
 `Camera::trace` (reference: src/world.rs:65-79) recursively per ray with
 the reference's material semantics (src/material.rs) on spheres
-(src/geom.rs:57-93).  Monte Carlo means from this tracer and from the TPU
+(src/geom.rs:57-93).  Monte Carlo means from this tracer and from the
 wavefront integrator must agree within sampling error — the RNGs differ
 by design, only the *distributions* match.
 """

@@ -157,7 +157,7 @@ def alpha_obj(tmp_path_factory):
     """Two-material OBJ: an opaque back quad and a front quad whose
     texture has transparent holes."""
     d = tmp_path_factory.mktemp("objset")
-    from PIL import Image
+    from mrt.runtime.io import encode_png
 
     holes = np.zeros((32, 32, 4), np.uint8)
     holes[..., 0] = 220
@@ -165,12 +165,12 @@ def alpha_obj(tmp_path_factory):
     holes[..., 2] = 40
     holes[..., 3] = 255
     holes[8:24, 8:24, 3] = 0            # transparent window
-    Image.fromarray(holes).save(d / "holes.png")
+    (d / "holes.png").write_bytes(encode_png(holes))
 
     solid = np.zeros((16, 16, 4), np.uint8)
     solid[..., 2] = 230
     solid[..., 3] = 255
-    Image.fromarray(solid).save(d / "solid.png")
+    (d / "solid.png").write_bytes(encode_png(solid))
 
     (d / "scene.mtl").write_text(
         "newmtl front\nKd 1 1 1\nmap_Kd holes.png\n"

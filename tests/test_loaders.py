@@ -40,11 +40,11 @@ map_Kd checker.png
         (tmp_path / "test.obj").write_text(self.OBJ)
         (tmp_path / "test.mtl").write_text(self.MTL)
         if with_png:
-            from PIL import Image
+            from mrt.runtime.io import encode_png
             img = np.zeros((2, 2, 4), np.uint8)
             img[..., 0] = [[255, 0], [0, 255]]
             img[..., 3] = 255
-            Image.fromarray(img).save(tmp_path / "checker.png")
+            (tmp_path / "checker.png").write_bytes(encode_png(img))
         return str(tmp_path / "test.obj")
 
     def test_fn_builder_faces_and_groups(self, tmp_path):
@@ -152,12 +152,33 @@ class TestPly:
                  face_fn=lambda a, b, c: got_f.append((a, b, c)))
         assert len(got_v) == 4 and len(got_f) == 2
 
-    def test_reference_cube_asset(self):
-        # The reference repo ships cube.ply (used by cornell/menger).
-        verts, faces = load_ply("/root/reference/cube.ply")
+    def test_reference_cube_asset(self, tmp_path):
+        # The reference ships cube.ply (used by cornell/menger); write
+        # the same cube from the procedural builder as an ASCII PLY.
+        from mrt.geometry.shapes import cube
+
+        soup = cube(size=2.0)
+        va = np.asarray(soup.va)
+        corners = np.stack([va, va + np.asarray(soup.e_ab),
+                            va + np.asarray(soup.e_ac)], axis=1)
+        uniq, idx = np.unique(corners.reshape(-1, 3).round(6), axis=0,
+                              return_inverse=True)
+        tri = idx.reshape(-1, 3)
+        lines = ["ply", "format ascii 1.0",
+                 f"element vertex {len(uniq)}", "property float x",
+                 "property float y", "property float z",
+                 f"element face {len(tri)}",
+                 "property list uchar int vertex_indices", "end_header"]
+        lines += [" ".join(f"{c:g}" for c in v) for v in uniq]
+        lines += ["3 " + " ".join(map(str, f)) for f in tri]
+        p = tmp_path / "cube.ply"
+        p.write_text("\n".join(lines) + "\n")
+
+        verts, faces = load_ply(str(p))
         assert verts.shape[0] >= 8 and faces.shape[0] >= 12
         # A cube spans an axis-aligned box.
         assert np.allclose(verts.min(0), verts.min()), "cube is a box"
+        np.testing.assert_allclose(verts[faces], corners, atol=1e-6)
 
     def test_bad_magic(self, tmp_path):
         p = tmp_path / "x.ply"

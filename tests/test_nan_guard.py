@@ -1,11 +1,11 @@
 """The eve NaN-pixel root cause (r5) and its guards.
 
-Diagnosed via tools/probe_nan_pixel.py: inside the fog volume an
+Diagnosis: inside the fog volume an
 isotropic scatter drew u3 == 0.0 exactly, the closed-form
 in_unit_sphere returned the ZERO VECTOR, and the degenerate
 zero-direction ray's cubemap background eval divided 0/0 -> one NaN
-pixel that poisons every later pass.  CPU and TPU reproduce
-identically (not a hardware quirk); the reference's rejection
+pixel that poisons every later pass.  The CPU and the accelerator
+reproduce it identically (not a hardware quirk); the reference's rejection
 sampler would need three simultaneous exact-zero draws, so the zero
 vector was this port's closed-form artifact.
 """

@@ -180,12 +180,8 @@ def _hard_case(name):
 @pytest.mark.parametrize("tile,spp", [(8, 1), (2, 4)])
 def test_hard_paths_sharded_match(name, tile, spp, monkeypatch):
     if name == "tlas_brute":
-        # tlas_brute is pure XLA, normally gated behind the TPU pallas
-        # check; force the dispatch so the brute while_loop's carries
-        # run under shard_map on the CPU mesh.
-        from mrt.geometry import spheres as sph_mod
-        monkeypatch.setattr(sph_mod, "_use_pallas",
-                            lambda *a: True)
+        # Route the TLAS through the brute oracle so its while_loop's
+        # carries run under shard_map on the CPU mesh.
         monkeypatch.setenv("MRT_TLAS_KERNEL", "brute")
         scene, camera = _hard_case("tlas")
     else:

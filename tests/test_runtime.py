@@ -73,9 +73,8 @@ class TestDriver:
         logs = []
         run(config, log=logs.append)
         assert os.path.exists(out)
-        from PIL import Image
-        img = Image.open(out)
-        assert img.size == (32, 18)
+        from mrt.runtime.io import load_png
+        assert load_png(out).shape == (18, 32, 4)
 
     def test_checkpoint_resume_via_driver(self, tmp_path):
         from mrt.runtime.driver import run
@@ -191,7 +190,7 @@ class TestElasticRecovery:
                          film=film, progress=progress)
                 if progress:
                     progress(f)
-                raise RuntimeError("TPU device error (simulated)")
+                raise RuntimeError("device error (simulated)")
             return real(scene, camera, cfg, film=film, progress=progress)
 
         monkeypatch.setattr(drv, "render_frame", flaky)

@@ -57,29 +57,3 @@ def test_menger_positions_count():
     # Level-2 positions are distinct.
     p = sponge_positions(2)
     assert len({tuple(x) for x in p.tolist()}) == 400
-
-
-def test_sort_auto_rule(monkeypatch):
-    """Hardware-measured thresholds (tools/probe_sort_ab.py r3): big
-    instanced TLAS and big sphere-BVH scenes sort; small coherent
-    scenes don't (cornell measured -52% with sorting)."""
-    from mrt.geometry import spheres as sph_mod
-
-    monkeypatch.setattr(sph_mod, "_use_pallas", lambda: True)
-    cornell, _ = _make("cornell").generate()
-    assert not cornell.prefers_sorted_rays()
-    lucy, _ = scenes.get("lucy")(aspect_ratio=1.0, grid=5).generate()
-    assert lucy.prefers_sorted_rays()          # 121 instances
-    eve, _ = scenes.get("eve")(aspect_ratio=1.0).generate()
-    assert eve.prefers_sorted_rays()           # 38 instances
-    grid, _ = scenes.get("sphere_grid")(aspect_ratio=1.0).generate()
-    assert grid.prefers_sorted_rays()          # 10k-sphere BVH
-    rtiow, _ = _make("rtiow").generate()
-    assert not rtiow.prefers_sorted_rays()
-
-    # Cadence rule (tools/probe_sort_cadence.py r4): every step only on
-    # heavy divergence (lucy 122 inst degrades past 1; streamed Menger
-    # measured 0% at 8), else every 4 (eve +19%, sphere_grid +21%).
-    assert lucy.sort_cadence() == 1
-    assert eve.sort_cadence() == 4
-    assert grid.sort_cadence() == 4

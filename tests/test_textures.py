@@ -198,7 +198,7 @@ class TestMirrorWrap:
 
 class TestFastPathsBitIdentical:
     """The quad-packed texel table (qdata), the packed row metadata
-    (meta) and the all_raw shortcut are pure TPU-perf reshapes of the
+    (meta) and the all_raw shortcut are pure performance reshapes of the
     same sampling; each must be bit-identical to the gather fallback."""
 
     def _mixed_atlas(self, rng):

@@ -1,9 +1,9 @@
 """Instanced brute TLAS path vs the per-lane XLA traversal.
 
-The brute path (geometry/tlas_brute.py) replaces packet traversal for
-small-geometry TLAS scenes; its winner must match the DFS fallback
-exactly — both share the deterministic (t, instance, triangle) tie
-rule and the same object-space warp + Möller–Trumbore expressions.
+The brute path (geometry/tlas_brute.py) is the traversal's oracle;
+its winner must match the two-level traversal exactly — both share the
+deterministic (t, instance, triangle) tie rule and the same
+object-space warp + Möller–Trumbore expressions.
 """
 
 import numpy as np
@@ -100,22 +100,15 @@ class TestTlasBrute:
         _assert_hits_equal(hx, hb)
 
     def test_wants_brute_gate(self, rng, monkeypatch):
-        from mrt.geometry import tlas_brute as tb
-
         tlas = _fleet_tlas(rng, ni=2)
-        # Default follows the AUTO_ON hardware gate (opt-in until a
-        # committed artifact shows a win).
+        # The oracle is opt-in: MRT_TLAS_KERNEL=brute and nothing else.
         monkeypatch.delenv("MRT_TLAS_KERNEL", raising=False)
-        assert wants_brute(tlas) == tb.AUTO_ON
-        monkeypatch.setenv("MRT_TLAS_KERNEL", "auto")
-        assert wants_brute(tlas)  # tiny geometry passes the size gate
-        monkeypatch.setenv("MRT_TLAS_KERNEL", "packet")
         assert not wants_brute(tlas)
+        for other in ("auto", "flat", "packet"):
+            monkeypatch.setenv("MRT_TLAS_KERNEL", other)
+            assert not wants_brute(tlas)
         monkeypatch.setenv("MRT_TLAS_KERNEL", "brute")
         assert wants_brute(tlas)
-        # Old pytrees without the per-instance ranges stay on packet.
-        monkeypatch.setenv("MRT_TLAS_KERNEL", "auto")
-        assert not wants_brute(tlas.replace(tri_first=None))
 
     def test_eve_scene_parity(self, rng):
         from mrt.scenes import get

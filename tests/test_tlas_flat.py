@@ -226,21 +226,15 @@ class TestTlasFlat:
         assert tlas.flat_tris is None and tlas.flat_bvh is None
 
     def test_wants_flat_gate(self, rng, monkeypatch):
-        """Hardware verdict (artifacts/tlas_flat_r04.json, warm
-        protocol): flat is neutral on small scenes and loses on
-        eve/lucy — no measured win, so FLAT_AUTO_ON stays False and
-        the path is env-forced only (the repo's opt-in rule)."""
-        from mrt.geometry import instance as inst
-
+        """The flat path is env-forced only (MRT_TLAS_KERNEL=flat or
+        =auto), and only when the flat tables were built."""
         tlas = _fleet_tlas(rng, ni=2)
         monkeypatch.delenv("MRT_TLAS_KERNEL", raising=False)
-        assert not inst.FLAT_AUTO_ON
         assert not wants_flat(tlas)
-        assert not wants_flat(tlas, auto=False)
         monkeypatch.setenv("MRT_TLAS_KERNEL", "auto")
         assert wants_flat(tlas)         # size gate alone
         monkeypatch.setenv("MRT_TLAS_KERNEL", "flat")
-        assert wants_flat(tlas) and wants_flat(tlas, auto=False)
+        assert wants_flat(tlas)
         monkeypatch.setenv("MRT_TLAS_KERNEL", "packet")
         assert not wants_flat(tlas)
         monkeypatch.setenv("MRT_TLAS_KERNEL", "flat")
@@ -263,10 +257,10 @@ class TestTlasFlat:
 
     def test_lucy_builds_parts(self, monkeypatch):
         """lucy (81k world tris, 122 instances) exceeds the single-flat
-        ceiling but clusters into SMEM-sized parts (built only when
-        requested — the clustered path lost its hardware A/B)."""
+        ceiling but clusters into parts under the flat size cap (built
+        only when requested)."""
         from mrt.scenes import get
-        from mrt.ops import budget
+        from mrt.geometry.instance import _flat_fits
 
         monkeypatch.setenv("MRT_TLAS_KERNEL", "flat")
         scene, _ = get("lucy")().generate()
@@ -277,8 +271,7 @@ class TestTlasFlat:
         for p in tlas.flat_parts:
             n = int(p.tris.va.shape[0])
             total += n
-            assert budget.fits(budget.tri_tables_bytes(
-                int(p.bvh.n_nodes), n))
+            assert _flat_fits(int(p.bvh.n_nodes), n)
             # Packed ids decode to valid (instance, BLAS tri) pairs.
             packed = np.asarray(p.packed)
             inst = packed >> 20
@@ -301,8 +294,7 @@ class TestTlasFlat:
         py = jnp.asarray(rng.uniform(0, 1, nr).astype(np.float32))
         o, d = camera.rays(px, py, jnp.zeros(nr), jnp.zeros(nr))
         hx = intersect_tlas(scene.tlas, o, d, 1e-3, jnp.inf)
-        hp = intersect_tlas_flat_parts(scene.tlas, o, d, 1e-3,
-                                       jnp.inf, use_pallas=False)
+        hp = intersect_tlas_flat_parts(scene.tlas, o, d, 1e-3, jnp.inf)
         assert np.asarray(hx.hit).mean() > 0.2
         _assert_hits_close(hx, hp, atol=1e-3)
 
